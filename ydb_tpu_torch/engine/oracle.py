@@ -1,0 +1,614 @@
+"""CPU reference engine (the port's copy of ``ydb_tpu/engine/oracle.py``).
+
+The reference keeps a CPU MiniKQL engine as the default with the
+accelerator runner plugged in behind a factory seam (SURVEY.md §2.9,
+TComputationNodeFactory mkql_factory.cpp:360). This module is that default
+engine for SSA programs: a straightforward numpy evaluator with identical
+semantics to the torch lowering (nulls, Kleene logic, decimal scaling,
+group-by, sort). Deliberately implemented independently of
+ydb_tpu_torch.ssa.kernels so tests can cross-check the two.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.blocks.dictionary import DictionarySet
+from ydb_tpu_torch.ssa.ops import Agg, Op
+from ydb_tpu_torch.ssa.program import (
+    AssignStep,
+    Call,
+    Col,
+    Const,
+    DictPredicate,
+    FilterStep,
+    GroupByStep,
+    ProjectStep,
+    Program,
+    SortStep,
+    WindowStep,
+    agg_result_type,
+    infer_type,
+)
+
+Array = np.ndarray
+ColT = tuple[Array, Array]  # (values, validity)
+
+
+class OracleTable:
+    """Host columnar table: name -> (values, validity)."""
+
+    def __init__(self, cols: dict[str, ColT], schema: dtypes.Schema):
+        self.cols = cols
+        self.schema = schema
+        self.dicts = None  # attached by the session for string decode
+
+    @property
+    def num_rows(self) -> int:
+        if not self.cols:
+            return 0
+        return len(next(iter(self.cols.values()))[0])
+
+    def column(self, name: str):
+        return self.cols[name][0]
+
+    def validity(self, name: str):
+        return self.cols[name][1]
+
+    def strings(self, name: str, dicts=None) -> list[bytes]:
+        """Decode a dictionary-encoded string column to bytes values."""
+        dicts = dicts if dicts is not None else self.dicts
+        if dicts is None:
+            raise ValueError("no DictionarySet attached for decode")
+        return dicts[name].decode(np.asarray(self.cols[name][0]))
+
+    @staticmethod
+    def from_block(block) -> "OracleTable":
+        # one batched device fetch for data + validity together: each
+        # separate fetch costs a device-link round trip
+        data, valid = block.host_columns()
+        return OracleTable(
+            {n: (data[n], valid[n]) for n in data}, block.schema
+        )
+
+
+def run_oracle(
+    program: Program,
+    table: OracleTable,
+    dicts: DictionarySet | None = None,
+) -> OracleTable:
+    cols = dict(table.cols)
+    types = {f.name: f.type for f in table.schema.fields}
+    n = table.num_rows
+    mask = np.ones(n, dtype=bool)
+    names = list(cols.keys())
+
+    for step in program.steps:
+        if isinstance(step, AssignStep):
+            cols[step.name] = _eval(step.expr, cols, types, dicts, n)
+            types[step.name] = infer_type(step.expr, table.schema, types)
+            if step.name not in names:
+                names.append(step.name)
+        elif isinstance(step, FilterStep):
+            v, ok = _eval(step.expr, cols, types, dicts, n)
+            mask = mask & (v.astype(bool) & ok)
+        elif isinstance(step, ProjectStep):
+            names = list(step.names)
+        elif isinstance(step, GroupByStep):
+            cols, types, names = _group_by(step, cols, types, mask, dicts,
+                                           table.schema)
+            n = len(next(iter(cols.values()))[0]) if cols else 0
+            mask = np.ones(n, dtype=bool)
+        elif isinstance(step, SortStep):
+            cols = {nm: (c[0][mask], c[1][mask]) for nm, c in cols.items()}
+            n = int(mask.sum())
+            mask = np.ones(n, dtype=bool)
+            order = _sort_order(step, cols, types, dicts)
+            cols = {nm: (c[0][order], c[1][order]) for nm, c in cols.items()}
+            if step.limit is not None:
+                cols = {nm: (c[0][:step.limit], c[1][:step.limit])
+                        for nm, c in cols.items()}
+                n = min(n, step.limit)
+                mask = np.ones(n, dtype=bool)
+        elif isinstance(step, WindowStep):
+            # deliberately DIFFERENT algorithm from the device plane:
+            # python sort + per-partition scan (vs lexsort + segment
+            # cummax), so the cross-check is independent
+            live_idx = np.flatnonzero(mask)
+
+            def keyval(col, i):
+                v = cols[col][0][i]
+                t = types[col]
+                if t.is_string:
+                    return int(dicts[col].sort_rank()[int(v)])
+                return v
+
+            def sort_key(i):
+                parts = [keyval(k, i) for k in step.partition]
+                orders = [
+                    -keyval(k, i) if dsc else keyval(k, i)
+                    for k, dsc in zip(
+                        step.order_keys,
+                        step.descending
+                        or (False,) * len(step.order_keys))]
+                return (parts, orders)
+
+            ranked = sorted(live_idx.tolist(),
+                            key=lambda i: tuple(
+                                map(tuple, sort_key(i))))
+            out = np.zeros(len(mask), dtype=np.int64)
+            prev_part = prev_order = None
+            rown = rank = dense = 0
+            for i in ranked:
+                parts, orders = sort_key(i)
+                if parts != prev_part:
+                    rown = rank = dense = 0
+                    prev_order = None
+                rown += 1
+                if orders != prev_order:
+                    rank = rown
+                    dense += 1
+                out[i] = {"row_number": rown, "rank": rank,
+                          "dense_rank": dense}[step.func]
+                prev_part, prev_order = parts, orders
+            cols[step.out_name] = (out, mask.copy())
+            types[step.out_name] = dtypes.INT64
+            if step.out_name not in names:
+                names.append(step.out_name)
+        else:
+            raise NotImplementedError(step)
+
+    out_cols = {nm: (cols[nm][0][mask], cols[nm][1][mask]) for nm in names}
+    out_schema = dtypes.Schema(
+        tuple(dtypes.Field(nm, types[nm]) for nm in names)
+    )
+    return OracleTable(out_cols, out_schema)
+
+
+def _const_array(c: Const, n: int) -> ColT:
+    if c.value is None:  # typed NULL (CASE without ELSE)
+        return (
+            np.zeros(n, dtype=c.type.physical),
+            np.zeros(n, dtype=bool),
+        )
+    return (
+        np.full(n, c.value, dtype=c.type.physical),
+        np.ones(n, dtype=bool),
+    )
+
+
+def _eval(expr, cols, types, dicts, n) -> ColT:
+    from ydb_tpu_torch.ssa.program import DictMap, UdfCall
+
+    if isinstance(expr, Col):
+        return cols[expr.name]
+    if isinstance(expr, Const):
+        return _const_array(expr, n)
+    if isinstance(expr, UdfCall):
+        args = [_eval(a, cols, types, dicts, n) for a in expr.args]
+        valid = args[0][1].copy()
+        for _, ok in args[1:]:
+            valid &= ok
+        out = np.asarray(expr.fn(*[v for v, _ in args]),
+                         dtype=expr.out_type.physical)
+        return out, valid
+    if isinstance(expr, DictMap):
+        from ydb_tpu_torch.ssa.compiler import dict_map_table
+
+        d = dicts[expr.column]
+        out_d = dicts.for_column(expr.out_column)
+        table = dict_map_table(d, out_d, expr.kind, expr.args)
+        ids, ok = cols[expr.column]
+        return table[np.clip(ids, 0, len(table) - 1)], ok.copy()
+    if isinstance(expr, DictPredicate):
+        d = dicts[expr.column]
+        ids, ok = cols[expr.column]
+        if expr.kind in ("eq", "ne"):
+            table = np.zeros(max(len(d), 1), dtype=bool)
+            i = d.eq_id(expr.pattern)
+            if i >= 0:
+                table[i] = True
+            if expr.kind == "ne":
+                table = ~table
+        elif expr.kind == "like":
+            table = d.like_mask(expr.pattern)
+        elif expr.kind == "prefix":
+            table = d.prefix_mask(expr.pattern)
+        elif expr.kind in ("in_set", "not_in_set"):
+            table = np.zeros(max(len(d), 1), dtype=bool)
+            for v in expr.pattern:
+                i = d.eq_id(v)
+                if i >= 0:
+                    table[i] = True
+            if expr.kind == "not_in_set":
+                table = ~table
+        elif expr.kind == "custom":
+            from ydb_tpu_torch.ssa.compiler import _custom_dict_mask
+
+            table = _custom_dict_mask(d, expr.pattern)
+        else:
+            raise NotImplementedError(expr.kind)
+        if len(table) == 0:
+            table = np.zeros(1, dtype=bool)
+        return table[np.clip(ids, 0, len(table) - 1)], ok.copy()
+    assert isinstance(expr, Call)
+    op = expr.op
+    args = [_eval(a, cols, types, dicts, n) for a in expr.args]
+    ts = [infer_type(a, None, types) if not isinstance(a, Const) else a.type
+          for a in expr.args]
+    return _apply_op(op, expr, args, ts, cols, types, dicts, n)
+
+
+def _align_dec(op, args, ts):
+    if len(ts) != 2 or not (ts[0].is_decimal or ts[1].is_decimal):
+        return args
+    sa = ts[0].scale if ts[0].is_decimal else 0
+    sb = ts[1].scale if ts[1].is_decimal else 0
+    if sa == sb:
+        return args
+    t = max(sa, sb)
+    out = list(args)
+    for i, s in enumerate((sa, sb)):
+        if s < t:
+            v, ok = out[i]
+            if np.issubdtype(v.dtype, np.floating):
+                out[i] = (np.round(v * 10 ** (t - s)).astype(np.int64), ok)
+            else:
+                out[i] = (v.astype(np.int64) * 10 ** (t - s), ok)
+    return out
+
+
+def _descale_mixed_np(args, ts):
+    """decimal op float -> both float (matches compiler._descale_mixed)."""
+    if len(ts) != 2:
+        return args, ts
+    a, b = ts
+    if not ((a.is_decimal and b.is_floating)
+            or (b.is_decimal and a.is_floating)):
+        return args, ts
+    out = list(args)
+    t_out = list(ts)
+    for i, t in enumerate(ts):
+        if t.is_decimal:
+            v, ok = out[i]
+            out[i] = (v.astype(np.float64) / 10.0 ** t.scale, ok)
+            t_out[i] = dtypes.DOUBLE
+    return out, t_out
+
+
+_F_UN = {Op.SQRT: np.sqrt, Op.EXP: np.exp, Op.LN: np.log,
+         Op.LOG10: np.log10, Op.FLOOR: np.floor, Op.CEIL: np.ceil,
+         Op.ROUND: np.round, Op.SIGN: np.sign, Op.SIN: np.sin,
+         Op.COS: np.cos, Op.TAN: np.tan, Op.ASIN: np.arcsin,
+         Op.ACOS: np.arccos, Op.ATAN: np.arctan, Op.SINH: np.sinh,
+         Op.COSH: np.cosh, Op.TANH: np.tanh, Op.ASINH: np.arcsinh,
+         Op.ACOSH: np.arccosh, Op.ATANH: np.arctanh,
+         Op.CBRT: np.cbrt, Op.LOG2: np.log2, Op.EXP2: np.exp2,
+         Op.TRUNC: np.trunc, Op.RINT: np.round,
+         Op.RADIANS: np.deg2rad, Op.DEGREES: np.rad2deg}
+# ops computed in float64 (everything but the shape-preserving four)
+_F_UN_FLOAT = frozenset(_F_UN) - {Op.FLOOR, Op.CEIL, Op.ROUND, Op.SIGN}
+
+
+def _apply_op(op, expr, args, ts, cols, types, dicts, n) -> ColT:
+    # decimal MUL multiplies unscaled values (scales add); only additive and
+    # comparison ops align operand scales
+    if op in (Op.ADD, Op.SUB, Op.MUL, Op.EQ, Op.NE, Op.LT, Op.LE, Op.GT,
+              Op.GE, Op.DIV, Op.GREATEST, Op.LEAST):
+        args, ts = _descale_mixed_np(args, ts)
+    if op in (Op.ADD, Op.SUB, Op.EQ, Op.NE, Op.LT, Op.LE, Op.GT,
+              Op.GE, Op.MOD, Op.GREATEST, Op.LEAST):
+        args = _align_dec(op, args, ts)
+    simple = {
+        Op.EQ: np.equal, Op.NE: np.not_equal, Op.LT: np.less,
+        Op.LE: np.less_equal, Op.GT: np.greater, Op.GE: np.greater_equal,
+        Op.ADD: np.add, Op.SUB: np.subtract, Op.MUL: np.multiply,
+        Op.XOR: np.bitwise_xor,
+        Op.GREATEST: np.maximum, Op.LEAST: np.minimum,
+    }
+    if op in simple:
+        (a, va), (b, vb) = args
+        return simple[op](a, b), va & vb
+    if op is Op.AND:
+        (a, va), (b, vb) = args
+        return a & b, ((~a & va) | (~b & vb) | (va & vb))
+    if op is Op.OR:
+        (a, va), (b, vb) = args
+        return a | b, ((a & va) | (b & vb) | (va & vb))
+    if op is Op.NOT:
+        a, va = args[0]
+        return ~a, va
+    if op in (Op.NEG,):
+        a, va = args[0]
+        return -a, va
+    if op is Op.ABS:
+        a, va = args[0]
+        return np.abs(a), va
+    if op is Op.DIV:
+        (a, va), (b, vb) = args
+        ta, tb = ts
+        zero = b == 0
+        denom = np.where(zero, 1, b)
+        if ta.is_floating or tb.is_floating or ta.is_decimal or tb.is_decimal:
+            fa = a.astype(np.float64) / (10.0 ** ta.scale if ta.is_decimal else 1)
+            fb = denom.astype(np.float64) / (10.0 ** tb.scale if tb.is_decimal else 1)
+            fb = np.where(fb == 0, 1.0, fb)
+            return fa / fb, va & vb & ~zero
+        # SQL integer division truncates toward zero
+        q = np.floor_divide(a, denom)
+        q = np.where((a - q * denom != 0) & ((a < 0) ^ (denom < 0)), q + 1, q)
+        return q, va & vb & ~zero
+    if op is Op.MOD:
+        (a, va), (b, vb) = args
+        zero = b == 0
+        denom = np.where(zero, 1, b)
+        q = np.floor_divide(a, denom)
+        q = np.where((a - q * denom != 0) & ((a < 0) ^ (denom < 0)), q + 1, q)
+        return a - denom * q, va & vb & ~zero
+    if op is Op.IS_NULL:
+        a, va = args[0]
+        return ~va, np.ones(len(va), dtype=bool)
+    if op is Op.IS_NOT_NULL:
+        a, va = args[0]
+        return va.copy(), np.ones(len(va), dtype=bool)
+    if op is Op.COALESCE:
+        data, valid = args[-1]
+        data, valid = data.copy(), valid.copy()
+        for a, va in reversed(args[:-1]):
+            data = np.where(va, a, data)
+            valid = va | valid
+        return data, valid
+    if op is Op.IF:
+        (c, vc), (a, va), (b, vb) = args
+        take = c.astype(bool) & vc
+        return np.where(take, a, b), vc & np.where(take, va, vb)
+    if op in (Op.CAST_INT32, Op.CAST_INT64, Op.CAST_FLOAT,
+              Op.CAST_DOUBLE, Op.CAST_INT8, Op.CAST_INT16,
+              Op.CAST_UINT64, Op.CAST_BOOL):
+        a, va = args[0]
+        ta = ts[0]
+        target = {
+            Op.CAST_INT32: np.int32, Op.CAST_INT64: np.int64,
+            Op.CAST_FLOAT: np.float32, Op.CAST_DOUBLE: np.float64,
+            Op.CAST_INT8: np.int8, Op.CAST_INT16: np.int16,
+            Op.CAST_UINT64: np.uint64, Op.CAST_BOOL: np.bool_,
+        }[op]
+        if ta.is_decimal:
+            if np.issubdtype(target, np.floating):
+                return (a.astype(np.float64) / 10 ** ta.scale).astype(target), va
+            return (a // 10 ** ta.scale).astype(target), va
+        return a.astype(target), va
+    if op in (Op.YEAR, Op.MONTH, Op.DAY):
+        a, va = args[0]
+        ta = ts[0]
+        days = a // 86_400_000_000 if ta.kind == dtypes.Kind.TIMESTAMP else a
+        dt = days.astype("datetime64[D]")
+        if op is Op.YEAR:
+            return dt.astype("datetime64[Y]").astype(int) + 1970, va
+        if op is Op.MONTH:
+            m = (dt.astype("datetime64[M]").astype(int) % 12) + 1
+            return m.astype(np.int32), va
+        dom = (dt - dt.astype("datetime64[M]")).astype(int) + 1
+        return dom.astype(np.int32), va
+    if op in (Op.HOUR, Op.MINUTE, Op.SECOND):
+        a, va = args[0]
+        if ts[0].kind != dtypes.Kind.TIMESTAMP:
+            # identical semantics to the device lowering: sub-day parts
+            # of a DATE are an error, not silent zeros
+            raise TypeError(f"{op} needs a timestamp operand")
+        div = {Op.HOUR: 3_600_000_000, Op.MINUTE: 60_000_000,
+               Op.SECOND: 1_000_000}[op]
+        mod = 24 if op is Op.HOUR else 60
+        return ((a // div) % mod).astype(np.int32), va
+    if op in (Op.DAY_OF_WEEK, Op.DAY_OF_YEAR, Op.WEEK, Op.QUARTER):
+        a, va = args[0]
+        days = (a // 86_400_000_000
+                if ts[0].kind == dtypes.Kind.TIMESTAMP else a)
+        days = days.astype(np.int64)
+        if op is Op.DAY_OF_WEEK:
+            return ((days + 4) % 7).astype(np.int32), va
+        dt = days.astype("datetime64[D]")
+        if op is Op.QUARTER:
+            m = (dt.astype("datetime64[M]").astype(int) % 12) + 1
+            return ((m - 1) // 3 + 1).astype(np.int32), va
+        jan1 = dt.astype("datetime64[Y]").astype("datetime64[D]")
+        doy = (dt - jan1).astype(int) + 1
+        if op is Op.DAY_OF_YEAR:
+            return doy.astype(np.int32), va
+        return ((doy - 1) // 7 + 1).astype(np.int32), va
+    if op in _F_UN:
+        a, va = args[0]
+        f = _F_UN[op]
+        if op in _F_UN_FLOAT:
+            with np.errstate(all="ignore"):
+                return f(a.astype(np.float64)), va
+        return f(a), va
+
+    if op is Op.ERF:
+        import math
+
+        a, va = args[0]
+        return np.vectorize(math.erf)(a.astype(np.float64)), va
+    if op in (Op.ATAN2, Op.HYPOT):
+        (a, va), (b, vb) = args
+        f = np.arctan2 if op is Op.ATAN2 else np.hypot
+        return f(a.astype(np.float64), b.astype(np.float64)), va & vb
+    if op in (Op.BIT_AND, Op.BIT_OR, Op.BIT_XOR, Op.SHIFT_LEFT,
+              Op.SHIFT_RIGHT):
+        (a, va), (b, vb) = args
+        f = {Op.BIT_AND: np.bitwise_and, Op.BIT_OR: np.bitwise_or,
+             Op.BIT_XOR: np.bitwise_xor,
+             Op.SHIFT_LEFT: np.left_shift,
+             Op.SHIFT_RIGHT: np.right_shift}[op]
+        return f(a, b), va & vb
+    if op is Op.BIT_NOT:
+        a, va = args[0]
+        return np.bitwise_not(a), va
+    if op is Op.DIV_INT:
+        (a, va), (b, vb) = args
+        ta, tb = ts[0], ts[1]
+        zero = b == 0
+        if (ta.is_decimal or tb.is_decimal or ta.is_floating
+                or tb.is_floating):
+            sa = 10.0 ** ta.scale if ta.is_decimal else 1.0
+            sb = 10.0 ** tb.scale if tb.is_decimal else 1.0
+            av = a.astype(np.float64) / sa
+            bv = np.where(zero, 1.0, b.astype(np.float64) / sb)
+            return np.trunc(av / bv).astype(np.int64), va & vb & ~zero
+        denom = np.where(zero, 1, b)
+        q = np.sign(a) * np.sign(denom) * (np.abs(a) // np.abs(denom))
+        return q, va & vb & ~zero
+    if op is Op.NULLIF:
+        (a, va), (b, vb) = args
+        ta, tb = ts[0], ts[1]
+        sa = ta.scale if ta.is_decimal else 0
+        sb = tb.scale if tb.is_decimal else 0
+        if ta.is_floating or tb.is_floating:
+            av = a.astype(np.float64) / 10.0 ** sa
+            bv = b.astype(np.float64) / 10.0 ** sb
+            equal = (av == bv) & vb
+        else:
+            m = max(sa, sb)
+            equal = (a * 10 ** (m - sa) == b * 10 ** (m - sb)) & vb
+        return a, va & ~equal
+    if op is Op.POW:
+        (a, va), (b, vb) = args
+        return np.power(a.astype(np.float64), b.astype(np.float64)), va & vb
+    if op is Op.IN_SET:
+        a, va = args[0]
+        hit = np.zeros(len(a), dtype=bool)
+        for cst in expr.args[1:]:
+            hit |= a == cst.value
+        return hit, va
+    raise NotImplementedError(op)
+
+
+def _group_by(step: GroupByStep, cols, types, mask, dicts, schema):
+    import numpy as np
+
+    key_vals = []
+    for k in step.keys:
+        v, ok = cols[k]
+        key_vals.append(np.where(ok, v, 0))
+        key_vals.append(ok)
+    nrows = len(mask)
+    if step.keys:
+        stacked = np.rec.fromarrays(key_vals)
+        live_keys = stacked[mask]
+        uniq, inv = np.unique(live_keys, return_inverse=True)
+        ngroups = len(uniq)
+    else:
+        ngroups = 1
+        inv = np.zeros(int(mask.sum()), dtype=np.int64)
+
+    out_cols: dict[str, ColT] = {}
+    out_types: dict[str, dtypes.LogicalType] = {}
+    for i, k in enumerate(step.keys):
+        v, ok = cols[k]
+        lv, lok = v[mask], ok[mask]
+        kd = np.zeros(ngroups, dtype=v.dtype)
+        kv = np.zeros(ngroups, dtype=bool)
+        kd[inv] = lv
+        kv[inv] = lok
+        out_cols[k] = (kd, kv)
+        out_types[k] = types[k]
+
+    for spec in step.aggs:
+        t = agg_result_type(spec, schema, types)
+        out_types[spec.out_name] = t
+        if spec.func is Agg.COUNT_ALL:
+            data = np.bincount(inv, minlength=ngroups).astype(np.int64)
+            valid = (
+                np.ones(ngroups, dtype=bool)
+                if not step.keys
+                else data >= 0
+            )
+            out_cols[spec.out_name] = (data, valid)
+            continue
+        v, ok = cols[spec.column]
+        lv, lok = v[mask], ok[mask]
+        nn = np.bincount(inv[lok], minlength=ngroups).astype(np.int64)
+        if spec.func is Agg.COUNT:
+            out_cols[spec.out_name] = (
+                nn,
+                np.ones(ngroups, dtype=bool) if not step.keys else nn >= 0,
+            )
+            continue
+        if spec.func is Agg.SUM:
+            acc = np.zeros(ngroups, dtype=t.physical)
+            np.add.at(acc, inv[lok], lv[lok].astype(t.physical))
+            out_cols[spec.out_name] = (acc, nn > 0)
+        elif spec.func is Agg.AVG:
+            src_t = types[spec.column]
+            acc = np.zeros(ngroups, dtype=np.float64)
+            np.add.at(acc, inv[lok], lv[lok].astype(np.float64))
+            if src_t.is_decimal:
+                acc /= 10.0 ** src_t.scale
+            out_cols[spec.out_name] = (
+                acc / np.maximum(nn, 1), nn > 0
+            )
+        elif spec.func in (Agg.VAR_SAMP, Agg.STDDEV_SAMP):
+            # deliberately DIFFERENT algorithm from the device plane:
+            # stable two-pass np.var per group, so the oracle
+            # cross-check detects the linear-state formula's
+            # catastrophic-cancellation regime instead of sharing it
+            src_t = types[spec.column]
+            v = lv[lok].astype(np.float64)
+            if src_t.is_decimal:
+                v = v / 10.0 ** src_t.scale
+            gi = inv[lok]
+            var = np.zeros(ngroups, dtype=np.float64)
+            for gidx in range(ngroups):
+                vals = v[gi == gidx]
+                if len(vals) >= 2:
+                    var[gidx] = np.var(vals, ddof=1)
+            out = np.sqrt(var) if spec.func is Agg.STDDEV_SAMP else var
+            out_cols[spec.out_name] = (out, nn > 1)
+        elif spec.func in (Agg.MIN, Agg.MAX):
+            src_t = types[spec.column]
+            vals = lv
+            if src_t.is_string:
+                rank = dicts[spec.column].sort_rank()
+                vals = rank[lv].astype(np.int64) << 32 | lv.astype(np.int64)
+            red = np.minimum if spec.func is Agg.MIN else np.maximum
+            if np.issubdtype(vals.dtype, np.floating):
+                init = np.inf if spec.func is Agg.MIN else -np.inf
+            else:
+                ii = np.iinfo(vals.dtype)
+                init = ii.max if spec.func is Agg.MIN else ii.min
+            acc = np.full(ngroups, init, dtype=vals.dtype)
+            red.at(acc, inv[lok], vals[lok])
+            if src_t.is_string:
+                acc = (acc & 0xFFFFFFFF).astype(np.int32)
+            out_cols[spec.out_name] = (acc, nn > 0)
+        elif spec.func is Agg.SOME:
+            acc = np.zeros(ngroups, dtype=lv.dtype)
+            acc[inv[lok][::-1]] = lv[lok][::-1]
+            out_cols[spec.out_name] = (acc, nn > 0)
+        else:
+            raise NotImplementedError(spec.func)
+
+    names = list(step.keys) + [s.out_name for s in step.aggs]
+    return out_cols, out_types, names
+
+
+def _sort_order(step: SortStep, cols, types, dicts):
+    desc = step.descending or (False,) * len(step.keys)
+    sort_keys = []
+    for k, dsc in zip(reversed(step.keys), reversed(desc)):
+        v, ok = cols[k]
+        t = types[k]
+        if t.is_string and dicts is not None and k in dicts:
+            v = dicts[k].sort_rank()[v]
+        d = v
+        if dsc:
+            if d.dtype == np.bool_:
+                d = ~d
+            elif np.issubdtype(d.dtype, np.integer):
+                d = ~d
+            else:
+                d = -d
+        sort_keys.append(d)
+        sort_keys.append(~ok)
+    return np.lexsort(tuple(sort_keys))

@@ -1,0 +1,232 @@
+"""Hand-written CUDA kernels for the hot group-by reduction.
+
+The counterpart of ``ydb_tpu/ssa/pallas_kernels.py``. Two kernels, both
+in ``ydb_tpu_torch/csrc/grouped_sum.cu`` (compiled with ``nvcc`` for
+``sm_90a`` at first use, loaded with ctypes):
+
+  * ``grouped_sum`` — per-group sum of one column (replaces
+    ``pallas_kernels.grouped_sum``, reached from ``kernels.scatter_sum``
+    on the per-aggregate group-by path);
+  * ``grouped_sum_multi`` — per-group sums of every column of a
+    (rows x slots) matrix in one pass (replaces
+    ``pallas_kernels.grouped_sum_multi``, reached from
+    ``kernels.fused_group_reduce`` on the fused path).
+
+Beside each kernel sits its plain torch version (``*_plain``). A wrapper
+given a CUDA tensor launches the kernel or raises; given a CPU tensor it
+runs the plain version — the CPU tests compare that arithmetic with the
+JAX package, and ``chip_smoke.py`` compares each kernel with its plain
+version on the card. There is no fallback from a failed build or launch.
+
+Eligibility is the reference's (``supported``/``supported_fused``), so
+the tier a program takes is the same in both packages. ``FORCE`` and
+``YDB_TPU_TORCH_KERNELS`` mirror ``pallas_kernels.FORCE`` /
+``YDB_TPU_PALLAS``: off sends the tier to the plain scatter instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+MAX_GROUPS = 2048
+MAX_FUSED_SLOTS = 128
+
+#: test/bench override: True/False forces the decision regardless of the
+#: environment (read when a program runs)
+FORCE: bool | None = None
+
+#: kernel launches since the last ``reset_launches()``; each wrapper adds
+#: one where it launches its CUDA kernel and nowhere else
+LAUNCHES = {"grouped_sum": 0, "grouped_sum_multi": 0}
+
+SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "grouped_sum.cu"
+BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
+             / "build" / "ydb_tpu_torch_kernels")
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def enabled() -> bool:
+    if FORCE is not None:
+        return FORCE
+    v = os.environ.get("YDB_TPU_TORCH_KERNELS")
+    if v is not None:
+        return v not in ("0", "", "off")
+    return True
+
+
+def supported(dtype, num_groups: int) -> bool:
+    return dtype in (torch.float32, torch.int32) and num_groups <= MAX_GROUPS
+
+
+def supported_fused(dtype, num_groups: int, n_slots: int) -> bool:
+    """Eligibility of the fused multi-column kernel
+    (kernels.fused_group_reduce's >ONEHOT tier)."""
+    return supported(dtype, num_groups) and n_slots <= MAX_FUSED_SLOTS
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------- build + bind ----------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the kernel source into a shared library under
+    ``build/ydb_tpu_torch_kernels`` (named by the source's hash, so an
+    edited source rebuilds) and return its path."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libgrouped_sum_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, end="")
+    os.replace(tmp, out)
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.ydb_grouped_sum_multi.argtypes = [p, p, p, ll, i, i, i, p]
+            lib.ydb_grouped_sum_multi.restype = i
+            lib.ydb_grouped_sum.argtypes = [p, p, p, ll, i, i, p]
+            lib.ydb_grouped_sum.restype = i
+            _lib = lib
+        return _lib
+
+
+def _check(values: torch.Tensor, gid: torch.Tensor, num_groups: int,
+           ndim: int) -> None:
+    if values.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes int32/float32 values, got {values.dtype}")
+    if gid.dtype != torch.int32:
+        raise TypeError(f"kernel takes int32 group ids, got {gid.dtype}")
+    if values.ndim != ndim or gid.ndim != 1 or gid.shape[0] != values.shape[0]:
+        raise ValueError(f"bad shapes {tuple(values.shape)} / {tuple(gid.shape)}")
+    if gid.device != values.device:
+        raise ValueError("values and group ids on different devices")
+    if not 1 <= num_groups <= MAX_GROUPS:
+        raise ValueError(f"num_groups {num_groups} outside [1, {MAX_GROUPS}]")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+# ---------------- grouped_sum_multi ----------------
+
+
+def grouped_sum_multi_plain(values: torch.Tensor, gid: torch.Tensor,
+                            num_groups: int) -> torch.Tensor:
+    """Plain torch version: (rows x slots) -> (num_groups x slots) sums;
+    ids outside [0, num_groups) go to a spare slot that is sliced off."""
+    ok = (gid >= 0) & (gid < num_groups)
+    idx = torch.where(ok, gid, num_groups).long()
+    out = torch.zeros((num_groups + 1, values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    out.index_add_(0, idx, values)
+    return out[:num_groups]
+
+
+def grouped_sum_multi(values: torch.Tensor, gid: torch.Tensor,
+                      num_groups: int) -> torch.Tensor:
+    """Fused multi-column grouped sum: (rows x slots) int32/float32
+    values -> (num_groups x slots). CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    _check(values, gid, num_groups, 2)
+    if values.shape[1] > MAX_FUSED_SLOTS:
+        raise ValueError(f"{values.shape[1]} slots > {MAX_FUSED_SLOTS}")
+    if not values.is_cuda:
+        return grouped_sum_multi_plain(values, gid, num_groups)
+    values = values.contiguous()
+    gid = gid.contiguous()
+    out = torch.zeros((num_groups, values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    err = _library().ydb_grouped_sum_multi(
+        values.data_ptr(), gid.data_ptr(), out.data_ptr(), values.shape[0],
+        values.shape[1], num_groups, _DTYPE_CODE[values.dtype],
+        torch.cuda.current_stream(values.device).cuda_stream)
+    _raise_on(err, "grouped_sum_multi")
+    LAUNCHES["grouped_sum_multi"] += 1
+    return out
+
+
+# ---------------- grouped_sum ----------------
+
+
+def grouped_sum_plain(values: torch.Tensor, gid: torch.Tensor,
+                      num_groups: int) -> torch.Tensor:
+    """Plain torch version of the one-column grouped sum."""
+    return grouped_sum_multi_plain(values[:, None], gid, num_groups)[:, 0]
+
+
+def grouped_sum(values: torch.Tensor, gid: torch.Tensor,
+                num_groups: int) -> torch.Tensor:
+    """Sum of ``values`` per group id; rows with ids outside
+    [0, num_groups) drop. CUDA tensors launch the kernel, CPU tensors
+    take the plain version."""
+    _check(values, gid, num_groups, 1)
+    if not values.is_cuda:
+        return grouped_sum_plain(values, gid, num_groups)
+    values = values.contiguous()
+    gid = gid.contiguous()
+    out = torch.zeros((num_groups,), dtype=values.dtype, device=values.device)
+    err = _library().ydb_grouped_sum(
+        values.data_ptr(), gid.data_ptr(), out.data_ptr(), values.shape[0],
+        num_groups, _DTYPE_CODE[values.dtype],
+        torch.cuda.current_stream(values.device).cuda_stream)
+    _raise_on(err, "grouped_sum")
+    LAUNCHES["grouped_sum"] += 1
+    return out
+
+
+def scatter_sum_kernel(values, valid_row, gid, num_groups: int, dtype=None):
+    """Drop-in twin of kernels.scatter_sum for supported dtypes (the
+    reference's ``scatter_sum_pallas``)."""
+    dtype = dtype or values.dtype
+    idx = torch.where(valid_row, gid, num_groups).to(torch.int32)
+    return grouped_sum(values.to(dtype), idx, num_groups)
