@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--sf 10] [--hits-rows 10000000] [--json-out PATH]
+                          [--baseline-source OLD_grouped_sum.cu]
 
 Phases, in order; any failure exits non-zero before the final line:
 
@@ -11,7 +12,9 @@ Phases, in order; any failure exits non-zero before the final line:
    power limit as ``nvidia-smi`` reports them.
 2. Kernels: builds the CUDA kernels of ``ydb_tpu_torch/csrc`` with nvcc
    (into ``build/ydb_tpu_torch_kernels``) and holds each against its plain
-   torch version on random and adversarial group ids.
+   torch version on random and adversarial group ids, misaligned
+   pointers, ragged row counts, slot counts at the 16-slot chunk edges,
+   replays of a captured CUDA graph and back-to-back calls.
 3. Main path: TPC-H Q1 and Q6 at scale factor ``--sf`` and ClickBench q33
    and q36 at ``--hits-rows`` rows, through the port's ``ScanExecutor``
    over device-resident blocks of 1<<20 rows; q33/q36 on the fused and on
@@ -19,9 +22,14 @@ Phases, in order; any failure exits non-zero before the final line:
    before this run and read just after; each kernel must have launched.
    Results are checked against independent numpy computations.
 4. Timings: warm rows/s per query; per-kernel device time at the main
-   path's shape (CUDA-graph replay, so host launch overhead is out)
-   beside its plain version, ``index_add_`` and its memory bound, plus
-   the host-inclusive time of one wrapper call.
+   path's shape (CUDA-graph replay, so host launch overhead is out), hot
+   and with inputs rotated through more than the L2 cache (cold), beside
+   its plain version, ``index_add_`` and its memory bound, plus the
+   host-inclusive time of one wrapper call and the device operations one
+   call issues (``torch.profiler``: exactly one kernel). With
+   ``--baseline-source``, an earlier kernel source is built and timed
+   beside them. Then a sweep over slot counts and id mixes (one
+   ``{"sweep": ...}`` line each).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -47,6 +55,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12
 BLOCK_ROWS = 1 << 20
+#: inputs rotated through for a cold-cache time: more than the H100's
+#: 50 MB L2 several times over
+L2_COLD_BYTES = 200 << 20
 KERNEL_SOURCE = "ydb_tpu_torch/csrc/grouped_sum.cu"
 REPLACES = {
     "grouped_sum_multi": "ydb_tpu/ssa/pallas_kernels.py:138",
@@ -89,19 +100,24 @@ def time_ms(fn, iters: int = 50, repeats: int = 5) -> float:
 def device_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     """Device time of one call: ``iters`` calls captured into a CUDA
     graph, replayed ``repeats`` times under CUDA events; the median
-    replay over ``iters``. Host launch overhead is not in it."""
-    fn()
+    replay over ``iters``. Host launch overhead is not in it. ``fn`` may
+    be a list of calls on different inputs: the graph then cycles
+    through them (``iters`` is rounded up to a multiple of their count),
+    so that the inputs, when they outgrow the L2 cache, are read cold."""
+    fns = fn if isinstance(fn, list) else [fn]
+    iters = -(-iters // len(fns)) * len(fns)
+    fns[0]()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for f in fns[:3]:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     samples = []
@@ -114,6 +130,73 @@ def device_ms(fn, iters: int = 20, repeats: int = 5) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+def cold_sets(tensors, set_bytes: int) -> list:
+    """Copies of ``tensors`` that together exceed the L2 cache (at least
+    8 sets, and at least L2_COLD_BYTES in all)."""
+    n = max(8, -(-L2_COLD_BYTES // set_bytes))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def bound(rows: int, slots: int, ng: int) -> tuple[float, str]:
+    """Least device ms for one grouped sum: ids and values read once,
+    the (groups x slots) output written once, at HBM rate; or one add
+    per value at the float32 rate, whichever is larger."""
+    bytes_ms = (rows * 4 + rows * slots * 4 + ng * slots * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * slots / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def sweep(ck, baseline, url_ids, ng, dev) -> list:
+    """Kernel device times at 1<<20 rows over slot counts and id mixes
+    (zipf URL ids as on the main path, uniform ids, one hot id), hot
+    (inputs in L2) and cold (inputs rotated through more than L2); int32
+    values, and float32 at 1 and 6 slots."""
+    rows = url_ids.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    mixes = {
+        "zipf": url_ids,
+        "uniform": torch.randint(0, ng, (rows,), generator=gen, device=dev,
+                                 dtype=torch.int32),
+        "hot": torch.full((rows,), 7, dtype=torch.int32, device=dev),
+    }
+    out = []
+    for mix, g in mixes.items():
+        for name, slots, dtype in (
+                ("grouped_sum_multi", 1, torch.int32),
+                ("grouped_sum_multi", 6, torch.int32),
+                ("grouped_sum_multi", 17, torch.int32),
+                ("grouped_sum_multi", 128, torch.int32),
+                ("grouped_sum", 1, torch.int32),
+                ("grouped_sum_multi", 1, torch.float32),
+                ("grouped_sum_multi", 6, torch.float32)):
+            shape = (rows, slots) if name == "grouped_sum_multi" else (rows,)
+            v = torch.randint(-1000, 1000, shape, generator=gen, device=dev,
+                              dtype=torch.int32).to(dtype)
+            kfn = getattr(ck, name)
+            sets = cold_sets((v, g), v.nbytes + g.nbytes)
+            row = {"kernel": name, "slots": slots, "ids": mix,
+                   "dtype": str(dtype).removeprefix("torch."), "rows": rows,
+                   "groups": ng,
+                   "ms": device_ms(lambda: kfn(v, g, ng)),
+                   "cold_ms": device_ms([
+                       (lambda vv=vv, gg=gg: kfn(vv, gg, ng))
+                       for vv, gg in sets])}
+            if baseline:
+                bfn = baseline[name]
+                row["baseline_ms"] = device_ms(lambda: bfn(v, g, ng))
+                row["baseline_cold_ms"] = device_ms([
+                    (lambda vv=vv, gg=gg: bfn(vv, gg, ng)) for vv, gg in sets])
+            row["bound_ms"], row["bound_by"] = bound(rows, slots, ng)
+            row["bound_share"] = row["bound_ms"] / row["cold_ms"]
+            del sets
+            out.append(row)
+            log(json.dumps({"sweep": row}))
+    return out
 
 
 # ---------------- phase 2: kernels against their plain versions ----------------
@@ -165,34 +248,135 @@ def kernel_phase(ck, dev) -> dict:
             err[name] = max(err[name], (got - want).abs().max().item())
         n_cases[name] += 1
 
+    # (rows, groups, dtype, id kind, value kind, (id offset, value
+    # offset)): an offset of 1 or 2 elements moves a pointer off 16-byte
+    # alignment; unequal offsets put ids and values in different phases
+    aligned = (0, 0)
     cases = []
     for ng in (513, 1749, 2048):
         for dtype in (torch.int32, torch.float32):
-            cases.append((BLOCK_ROWS, ng, dtype, "random", "random"))
+            cases.append((BLOCK_ROWS, ng, dtype, "random", "random", aligned))
     for dtype in (torch.int32, torch.float32):
         vk = "int_floats" if dtype == torch.float32 else "random"
         cases += [
-            (BLOCK_ROWS, 1749, dtype, "all_dropped", "random"),
-            (BLOCK_ROWS, 1749, dtype, "hot", vk),
-            (BLOCK_ROWS, 1749, dtype, "out_of_range", "random"),
-            (BLOCK_ROWS - 333, 1749, dtype, "random", "random"),
-            (1000, 513, dtype, "out_of_range", "random"),
+            (BLOCK_ROWS, 1749, dtype, "all_dropped", "random", aligned),
+            (BLOCK_ROWS, 1749, dtype, "hot", vk, aligned),
+            (BLOCK_ROWS, 1749, dtype, "out_of_range", "random", aligned),
+            (BLOCK_ROWS - 333, 1749, dtype, "random", "random", aligned),
+            (1000, 513, dtype, "out_of_range", "random", aligned),
+            (BLOCK_ROWS + 3, 1749, dtype, "random", "random", (1, 1)),
+            (BLOCK_ROWS + 3, 1749, dtype, "out_of_range", "random", (1, 2)),
+            (BLOCK_ROWS, 2048, dtype, "hot", vk, (3, 3)),
         ]
-    cases.append((BLOCK_ROWS, 1749, torch.int32, "hot", "wrap"))
-    for rows, ng, dtype, gk, vk in cases:
-        g = gids(rows, ng, gk)
-        for slots in (1, 6, 128):
-            v = values(rows, slots, dtype, vk)
-            label = f"rows={rows} groups={ng} slots={slots} {dtype} {gk}/{vk}"
+        for rows in (1, 3, 4095):
+            for offs in (aligned, (1, 1), (2, 1)):
+                cases.append((rows, 1749, dtype, "out_of_range", "random",
+                              offs))
+    # more rows than one cluster's share, all in one group: int32 wraps
+    cases.append((BLOCK_ROWS, 1749, torch.int32, "hot", "wrap", aligned))
+    cases.append((BLOCK_ROWS + 3, 1749, torch.int32, "hot", "wrap", (1, 1)))
+    for rows, ng, dtype, gk, vk, (go, vo) in cases:
+        g = gids(rows + go, ng, gk)[go:]
+        for slots in (1, 6, 16, 17, 32, 128):
+            v = values(rows + vo, slots, dtype, vk)[vo:]
+            label = (f"rows={rows} groups={ng} slots={slots} {dtype} "
+                     f"{gk}/{vk} offsets={go},{vo}")
             check("grouped_sum_multi", ck.grouped_sum_multi(v, g, ng),
                   ck.grouped_sum_multi_plain(v, g, ng), dtype, label)
-        v = values(rows, 0, dtype, vk)
+        v = values(rows + vo, 0, dtype, vk)[vo:]
         check("grouped_sum", ck.grouped_sum(v, g, ng),
               ck.grouped_sum_plain(v, g, ng), dtype,
-              f"rows={rows} groups={ng} {dtype} {gk}/{vk}")
+              f"rows={rows} groups={ng} {dtype} {gk}/{vk} offsets={go},{vo}")
+
+    # one call captured into a CUDA graph and replayed three times: each
+    # replay must equal the plain version (the launch's ticket resets);
+    # then two calls back to back on one stream with other group counts
+    g = gids(BLOCK_ROWS + 1, 2048, "random")[1:]
+    for name, slots, kfn, pfn in (
+            ("grouped_sum_multi", 17, ck.grouped_sum_multi,
+             ck.grouped_sum_multi_plain),
+            ("grouped_sum_multi", 1, ck.grouped_sum_multi,
+             ck.grouped_sum_multi_plain),
+            ("grouped_sum", 0, ck.grouped_sum, ck.grouped_sum_plain)):
+        v = values(BLOCK_ROWS + 1, slots, torch.int32, "random")[1:]
+        kfn(v, g, 1749)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = kfn(v, g, 1749)
+        want = pfn(v, g, 1749)
+        for i in range(3):
+            got.fill_(-1)
+            graph.replay()
+            check(name, got, want, torch.int32,
+                  f"CUDA graph replay {i} slots={slots}")
+        a, b = kfn(v, g, 513), kfn(v, g, 2048)
+        check(name, a, pfn(v, g, 513), torch.int32,
+              f"back to back, 513 groups slots={slots}")
+        check(name, b, pfn(v, g, 2048), torch.int32,
+              f"back to back, 2048 groups slots={slots}")
     log(f"kernel phase: {n_cases} cases agree with the plain versions; "
         f"max |kernel - plain| (float32) {err}")
     return err
+
+
+def device_kernels_of_one_call(fn) -> list:
+    """Names of the device operations (kernels, memsets, copies) that
+    one warm call of ``fn`` issues, from a ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def load_baseline(ck, source: str):
+    """An earlier grouped_sum.cu with the zero-filled-output interface
+    (``ydb_grouped_sum_multi(values, gid, out, rows, slots, groups,
+    dtype, stream)``, ``ydb_grouped_sum(values, gid, out, rows, groups,
+    dtype, stream)``), built with the same nvcc flags and wrapped as its
+    callers did: ``torch.zeros`` for the output, then the launch."""
+    import ctypes
+    import hashlib
+
+    src = open(source, "rb").read()
+    tag = hashlib.sha256(src).hexdigest()[:16]
+    so = ck.BUILD_DIR / f"libbaseline_{tag}.so"
+    ck.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-o", str(so), source],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ydb_grouped_sum_multi.argtypes = [p, p, p, ll, i, i, i, p]
+    lib.ydb_grouped_sum.argtypes = [p, p, p, ll, i, i, p]
+    lib.ydb_grouped_sum_multi.restype = lib.ydb_grouped_sum.restype = i
+    code = {torch.int32: 0, torch.float32: 1}
+
+    def multi(values, gid, ng):
+        out = torch.zeros((ng, values.shape[1]), dtype=values.dtype,
+                          device=values.device)
+        rc = lib.ydb_grouped_sum_multi(
+            values.data_ptr(), gid.data_ptr(), out.data_ptr(),
+            values.shape[0], values.shape[1], ng, code[values.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+
+    def single(values, gid, ng):
+        out = torch.zeros((ng,), dtype=values.dtype, device=values.device)
+        rc = lib.ydb_grouped_sum(
+            values.data_ptr(), gid.data_ptr(), out.data_ptr(),
+            values.shape[0], ng, code[values.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+
+    return {"grouped_sum_multi": multi, "grouped_sum": single}
 
 
 # ---------------- phase 3: the main path ----------------
@@ -269,6 +453,10 @@ def main(argv=None) -> int:
                     help="ClickBench hits rows (published: 99997497)")
     ap.add_argument("--json-out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--baseline-source", default=None,
+                    help="an earlier grouped_sum.cu with the zero-filled-"
+                    "output interface, timed beside the kernels in the "
+                    "same run (see load_baseline)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -398,45 +586,70 @@ def main(argv=None) -> int:
     ones2 = ones[:, None].contiguous()
     buf = torch.zeros(ng + 1, dtype=torch.int32, device=dev)
     buf2 = torch.zeros(ng + 1, 1, dtype=torch.int32, device=dev)
+    baseline = (load_baseline(ck, args.baseline_source)
+                if args.baseline_source else None)
     kernel_rows = []
     for name, kfn, pfn, lfn, vals in (
-        ("grouped_sum_multi",
-         lambda: ck.grouped_sum_multi(ones2, g, ng),
-         lambda: ck.grouped_sum_multi_plain(ones2, g, ng),
+        ("grouped_sum_multi", ck.grouped_sum_multi, ck.grouped_sum_multi_plain,
          lambda: buf2.index_add_(0, idx64, ones2), ones2),
-        ("grouped_sum",
-         lambda: ck.grouped_sum(ones, g, ng),
-         lambda: ck.grouped_sum_plain(ones, g, ng),
+        ("grouped_sum", ck.grouped_sum, ck.grouped_sum_plain,
          lambda: buf.index_add_(0, idx64, ones), ones),
     ):
         slots = 1 if vals.ndim == 1 else vals.shape[1]
-        nbytes = rows * 4 + rows * slots * 4 + ng * slots * 4
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = rows * slots / F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(rows, slots, ng)
+        # one call, one device launch: no fill or memset beside the kernel
+        issued = device_kernels_of_one_call(lambda: kfn(vals, g, ng))
+        assert len(issued) == 1 and "grouped_sum_kernel" in issued[0], issued
         # plain, kernel, kernel, plain: compare within one call
-        p1, k1, k2, p2 = (device_ms(f) for f in (pfn, kfn, kfn, pfn))
+        p1, k1, k2, p2 = (device_ms(f) for f in (
+            lambda: pfn(vals, g, ng), lambda: kfn(vals, g, ng),
+            lambda: kfn(vals, g, ng), lambda: pfn(vals, g, ng)))
+        sets = cold_sets((vals, g), vals.nbytes + g.nbytes)
+        cold = device_ms([(lambda vv=vv, gg=gg: kfn(vv, gg, ng))
+                          for vv, gg in sets])
         lib = device_ms(lfn)
-        call = time_ms(kfn)
-        kernel_rows.append({
+        call = time_ms(lambda: kfn(vals, g, ng))
+        row = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max_err[name],
             "ms": statistics.median([k1, k2]),
             "plain_ms": statistics.median([p1, p2]),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib,
-            "call_ms": call,
-        })
-        log(f"{name} @ rows={rows} groups={ng} slots={slots}: device time "
-            f"kernel {k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, "
-            f"index_add_ {lib:.5f} ms, bound {max(bytes_ms, ops_ms):.5f} ms; "
-            f"host-inclusive kernel call {call:.5f} ms")
+            "cold_ms": cold, "bound_share": bound_ms / cold,
+            "call_ms": call, "device_ops_per_call": issued,
+        }
+        msg = (f"{name} @ rows={rows} groups={ng} slots={slots}: device time "
+               f"kernel {k1:.5f}/{k2:.5f} ms, cold {cold:.5f} ms, plain "
+               f"{p1:.5f}/{p2:.5f} ms, index_add_ {lib:.5f} ms, bound "
+               f"{bound_ms:.5f} ms ({bound_ms / cold:.3f} of it cold); "
+               f"host-inclusive kernel call {call:.5f} ms; one call issues "
+               f"{issued}")
+        if baseline:
+            bfn = baseline[name]
+            assert torch.equal(bfn(vals, g, ng), pfn(vals, g, ng)), name
+            b1, b2 = (device_ms(lambda: bfn(vals, g, ng)) for _ in range(2))
+            row["baseline_ms"] = statistics.median([b1, b2])
+            row["baseline_cold_ms"] = device_ms(
+                [(lambda vv=vv, gg=gg: bfn(vv, gg, ng)) for vv, gg in sets])
+            row["baseline_device_ops_per_call"] = device_kernels_of_one_call(
+                lambda: bfn(vals, g, ng))
+            row["baseline_call_ms"] = time_ms(lambda: bfn(vals, g, ng))
+            msg += (f"; baseline {b1:.5f}/{b2:.5f} ms, cold "
+                    f"{row['baseline_cold_ms']:.5f} ms, host-inclusive call "
+                    f"{row['baseline_call_ms']:.5f} ms, one call issues "
+                    f"{row['baseline_device_ops_per_call']}")
+        del sets
+        kernel_rows.append(row)
+        log(msg)
+    sweep_rows = sweep(ck, baseline, g, ng, dev)
     metrics["q33_fused_launches_per_run"] = per_query["q33_fused"]["launches"]
     metrics["q33_peragg_launches_per_run"] = per_query["q33_peragg"]["launches"]
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
-                  kernels=kernel_rows, peak_device_bytes=peak_bytes,
+                  kernels=kernel_rows, sweep=sweep_rows,
+                  peak_device_bytes=peak_bytes,
                   sf=args.sf, lineitem_rows=n_li, hits_rows=args.hits_rows)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

@@ -461,26 +461,87 @@ def test_kernel_gate_and_eligibility(monkeypatch):
     assert ck.enabled()
 
 
+@pytest.mark.parametrize("slots", [1, 6, 16, 17, 128])
+@pytest.mark.parametrize("rows", [0, 3, 4095, (1 << 20) + 3, 1 << 24])
+@pytest.mark.parametrize("max_clusters", [1, 16, 66])
+def test_launch_plan(slots, rows, max_clusters):
+    """The grid and scratch of one kernel launch: 16-slot chunks, never
+    more clusters than the card holds at once, scratch for every
+    cluster's partial of every chunk."""
+    ng = 1746
+    plan = ck._launch_plan(rows, slots, ng, max_clusters)
+    assert plan.chunks == -(-slots // 16)
+    assert plan.chunk_width == min(slots, 16)
+    assert (plan.chunks, plan.chunk_width) == {
+        1: (1, 1), 6: (1, 6), 16: (1, 16), 17: (2, 16), 128: (8, 16)}[slots]
+    assert 1 <= plan.clusters <= max_clusters
+    # enough threads for every (row, slot) element of a chunk, unless the
+    # card holds no more clusters
+    assert (plan.clusters * ck.ELEMS_PER_CLUSTER >= rows * plan.chunk_width
+            or plan.clusters == max_clusters)
+    assert plan.clusters == 1 or ((plan.clusters - 1) * ck.ELEMS_PER_CLUSTER
+                                  < rows * plan.chunk_width)
+    # each cluster's partial padded to a multiple of 4 elements (16 B)
+    assert plan.part_stride % 4 == 0
+    assert 0 <= plan.part_stride - ng * plan.chunk_width < 4
+    assert plan.scratch_elems == (plan.chunks * plan.clusters
+                                  * plan.part_stride)
+    if rows == 1 << 24 and max_clusters == 16:  # the 128 KB case: 16 MB
+        assert plan.scratch_elems * 4 == {1: 1748, 6: 6 * ng, 16: 16 * ng,
+                                          17: 32 * ng,
+                                          128: 128 * ng}[slots] * 16 * 4
+
+
+def test_ticket_rows(monkeypatch):
+    """Each stream gets its own zeroed row of tickets, CLUSTER for each
+    of the at most 8 chunks of 16 slots, from one slab per device."""
+    monkeypatch.setattr(ck, "_ticket_slabs", {})
+    monkeypatch.setattr(ck, "_ticket_rows", {})
+    cpu = torch.device("cpu")
+    a, b = ck._tickets(cpu, 11), ck._tickets(cpu, 22)
+    assert a.shape == b.shape == (-(-ck.MAX_FUSED_SLOTS // 16) * ck.CLUSTER,)
+    assert a.dtype == torch.int32 and not a.any() and not b.any()
+    assert a.data_ptr() != b.data_ptr()
+    assert ck._tickets(cpu, 11).data_ptr() == a.data_ptr()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("slots", [0, 1, 6, 128])
+@pytest.mark.parametrize("slots", [0, 1, 6, 17, 128])
 def test_cuda_kernels_match_plain_on_gpu(slots):
-    """On a GPU: each kernel against its plain version (chip_smoke.py runs
-    the full adversarial set)."""
+    """On a GPU: each kernel against its plain version, on aligned and
+    misaligned inputs and on replays of a captured CUDA graph
+    (chip_smoke.py runs the full adversarial set)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(slots)
+
+    def run(vals, gid, ng):
+        if slots:
+            return (ck.grouped_sum_multi(vals, gid, ng),
+                    ck.grouped_sum_multi_plain(vals, gid, ng))
+        return ck.grouped_sum(vals, gid, ng), ck.grouped_sum_plain(vals, gid, ng)
+
     for ng in (513, 1749, 2048):
-        gid = torch.randint(-2, ng + 3, (100_003,), generator=gen,
+        gid = torch.randint(-2, ng + 3, (100_004,), generator=gen,
                             device="cuda", dtype=torch.int32)
-        shape = (100_003, slots) if slots else (100_003,)
+        shape = (100_004, slots) if slots else (100_004,)
         vals = torch.randint(-1000, 1000, shape, generator=gen,
                              device="cuda", dtype=torch.int32)
-        if slots:
-            got = ck.grouped_sum_multi(vals, gid, ng)
-            want = ck.grouped_sum_multi_plain(vals, gid, ng)
-        else:
-            got = ck.grouped_sum(vals, gid, ng)
-            want = ck.grouped_sum_plain(vals, gid, ng)
+        for lo in (0, 1):  # 1: pointers off 16-byte alignment
+            got, want = run(vals[lo:100_003], gid[lo:100_003], ng)
+            assert torch.equal(got, want), (ng, lo)
+    # graph replays: the kernel's ticket must reset after every launch
+    vals, gid = vals[1:], gid[1:]
+    run(vals, gid, 1749)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = run(vals, gid, 1749)
+    want = run(vals, gid, 1749)[1]
+    for _ in range(3):
+        got.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
         assert torch.equal(got, want)
 
 

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for the hot group-by reduction.
 
-The counterpart of ``ydb_tpu/ssa/pallas_kernels.py``. Two kernels, both
-in ``ydb_tpu_torch/csrc/grouped_sum.cu`` (compiled with ``nvcc`` for
-``sm_90a`` at first use, loaded with ctypes):
+The counterpart of ``ydb_tpu/ssa/pallas_kernels.py``. Two entry points
+of one kernel body in ``ydb_tpu_torch/csrc/grouped_sum.cu`` (compiled
+with ``nvcc`` for ``sm_90a`` at first use, loaded with ctypes):
 
   * ``grouped_sum`` — per-group sum of one column (replaces
     ``pallas_kernels.grouped_sum``, reached from ``kernels.scatter_sum``
@@ -11,6 +11,17 @@ in ``ydb_tpu_torch/csrc/grouped_sum.cu`` (compiled with ``nvcc`` for
     (rows x slots) matrix in one pass (replaces
     ``pallas_kernels.grouped_sum_multi``, reached from
     ``kernels.fused_group_reduce`` on the fused path).
+
+One call is one device launch. The output is allocated with
+``torch.empty`` and written whole by the kernel (no zero fill). Beside
+it the wrapper passes a scratch buffer, also ``torch.empty``, for the
+per-cluster partial sums (``_launch_plan`` sizes both the grid and the
+scratch), and ``CLUSTER`` tickets per 16-slot chunk (one per slice of
+the output) from a zeroed per-device slab, one row of tickets per
+stream: the CTA that counts last for a slice resets its ticket, so
+launches on one stream, and replays of a captured CUDA graph, find
+them at zero. A graph keeps the tickets of the stream it was captured
+on: replay it on one stream at a time.
 
 Beside each kernel sits its plain torch version (``*_plain``). A wrapper
 given a CUDA tensor launches the kernel or raises; given a CPU tensor it
@@ -34,11 +45,23 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from typing import NamedTuple
 
 import torch
 
 MAX_GROUPS = 2048
 MAX_FUSED_SLOTS = 128
+
+# launch geometry, as in csrc/grouped_sum.cu (kSlotChunk, kCluster)
+SLOT_CHUNK = 16
+CLUSTER = 8
+#: (row, slot) elements a cluster should take before one more cluster,
+#: whose partial the last CTA of each slice must also read, pays off: 16
+#: a thread at the kernel's 512 threads per CTA, 8 at its 1024 (int32
+#: 16-slot chunks)
+ELEMS_PER_CLUSTER = 1 << 16
+#: streams per device that can hold a row of tickets at once
+TICKET_STREAMS = 256
 
 #: test/bench override: True/False forces the decision regardless of the
 #: environment (read when a program runs)
@@ -57,7 +80,14 @@ NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 
 _lib = None
-_lib_lock = threading.Lock()
+_lock = threading.Lock()
+#: (device index, dtype, slots capped at SLOT_CHUNK, num_groups) -> the
+#: number of clusters of that launch the device holds at once
+_max_clusters: dict = {}
+#: device index -> int32 (TICKET_STREAMS, chunks x CLUSTER) zeroed slab, and
+#: (device index, stream handle) -> its row
+_ticket_slabs: dict = {}
+_ticket_rows: dict = {}
 
 
 def enabled() -> bool:
@@ -126,16 +156,88 @@ def build(verbose: bool = False) -> pathlib.Path:
 
 def _library() -> ctypes.CDLL:
     global _lib
-    with _lib_lock:
+    with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.ydb_grouped_sum_multi.argtypes = [p, p, p, ll, i, i, i, p]
+            lib.ydb_grouped_sum_multi.argtypes = [p, p, p, p, p, ll, i, i, i,
+                                                  i, p]
             lib.ydb_grouped_sum_multi.restype = i
-            lib.ydb_grouped_sum.argtypes = [p, p, p, ll, i, i, p]
+            lib.ydb_grouped_sum.argtypes = [p, p, p, p, p, ll, i, i, i, p]
             lib.ydb_grouped_sum.restype = i
+            lib.ydb_grouped_sum_max_clusters.argtypes = [
+                i, i, i, ctypes.POINTER(i)]
+            lib.ydb_grouped_sum_max_clusters.restype = i
             _lib = lib
         return _lib
+
+
+class LaunchPlan(NamedTuple):
+    clusters: int       # thread-block clusters of CLUSTER CTAs (grid x)
+    chunks: int         # SLOT_CHUNK-slot chunks (grid y)
+    chunk_width: int    # slots of the widest chunk
+    part_stride: int    # elements per cluster partial: groups x width, to 4
+    scratch_elems: int  # per-cluster partials: chunks x clusters x part_stride
+
+
+def _launch_plan(rows: int, slots: int, num_groups: int,
+                 max_clusters: int) -> LaunchPlan:
+    """The grid and scratch of one launch: as many clusters as give each
+    about ELEMS_PER_CLUSTER (row, slot) elements, at least one and at
+    most the ``max_clusters`` the device holds at once. Partials are
+    padded to a multiple of 4 elements (the kernel's ``part_stride_of``)
+    for 16-byte loads."""
+    width = min(slots, SLOT_CHUNK)
+    chunks = -(-slots // SLOT_CHUNK)
+    clusters = max(1, min(max_clusters,
+                          -(-rows * width // ELEMS_PER_CLUSTER)))
+    part_stride = -(-num_groups * width // 4) * 4
+    return LaunchPlan(clusters, chunks, width, part_stride,
+                      chunks * clusters * part_stride)
+
+
+def _device_max_clusters(lib, device: torch.device, dtype, slots: int,
+                         num_groups: int) -> int:
+    key = (device.index, dtype, min(slots, SLOT_CHUNK), num_groups)
+    n = _max_clusters.get(key)
+    if n is None:
+        count = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.ydb_grouped_sum_max_clusters(
+                min(slots, SLOT_CHUNK), num_groups, _DTYPE_CODE[dtype],
+                ctypes.byref(count))
+        _raise_on(err, "cudaOccupancyMaxActiveClusters for grouped_sum")
+        if count.value < 1:
+            raise RuntimeError(
+                f"grouped_sum: no cluster of {CLUSTER} CTAs fits on {device} "
+                f"({num_groups} groups, {slots} slots, {dtype})")
+        n = _max_clusters[key] = count.value
+    return n
+
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """This stream's row of tickets: CLUSTER per 16-slot chunk, one per
+    slice of the output (zero between launches)."""
+    key = (device.index, stream)
+    row = _ticket_rows.get(key)
+    if row is not None:
+        return row
+    with _lock:
+        row = _ticket_rows.get(key)
+        if row is None:
+            slab = _ticket_slabs.get(device.index)
+            if slab is None:
+                slab = _ticket_slabs[device.index] = torch.zeros(
+                    (TICKET_STREAMS,
+                     -(-MAX_FUSED_SLOTS // SLOT_CHUNK) * CLUSTER),
+                    dtype=torch.int32, device=device)
+            taken = sum(k[0] == device.index for k in _ticket_rows)
+            if taken >= TICKET_STREAMS:
+                raise RuntimeError(
+                    f"grouped_sum: more than {TICKET_STREAMS} streams on "
+                    f"{device} hold kernel tickets")
+            row = _ticket_rows.setdefault(key, slab[taken])
+    return row
 
 
 def _check(values: torch.Tensor, gid: torch.Tensor, num_groups: int,
@@ -155,6 +257,33 @@ def _check(values: torch.Tensor, gid: torch.Tensor, num_groups: int,
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _launch(entry: str, values: torch.Tensor, gid: torch.Tensor,
+            num_groups: int) -> torch.Tensor:
+    """One launch of the kernel through C entry point ``entry`` on the
+    current stream; values (rows x slots) -> (num_groups x slots)."""
+    lib = _library()
+    values = values.contiguous()
+    gid = gid.contiguous()
+    rows, slots = values.shape
+    dev = values.device
+    plan = _launch_plan(rows, slots, num_groups, _device_max_clusters(
+        lib, dev, values.dtype, slots, num_groups))
+    out = torch.empty((num_groups, slots), dtype=values.dtype, device=dev)
+    scratch = torch.empty(plan.scratch_elems, dtype=values.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (values.data_ptr(), gid.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), _tickets(dev, stream).data_ptr(), rows)
+    if entry == "ydb_grouped_sum":
+        err = lib.ydb_grouped_sum(*ptrs, num_groups, plan.clusters,
+                                  _DTYPE_CODE[values.dtype], stream)
+    else:
+        err = lib.ydb_grouped_sum_multi(*ptrs, slots, num_groups,
+                                        plan.clusters,
+                                        _DTYPE_CODE[values.dtype], stream)
+    _raise_on(err, entry)
+    return out
 
 
 # ---------------- grouped_sum_multi ----------------
@@ -182,15 +311,7 @@ def grouped_sum_multi(values: torch.Tensor, gid: torch.Tensor,
         raise ValueError(f"{values.shape[1]} slots > {MAX_FUSED_SLOTS}")
     if not values.is_cuda:
         return grouped_sum_multi_plain(values, gid, num_groups)
-    values = values.contiguous()
-    gid = gid.contiguous()
-    out = torch.zeros((num_groups, values.shape[1]), dtype=values.dtype,
-                      device=values.device)
-    err = _library().ydb_grouped_sum_multi(
-        values.data_ptr(), gid.data_ptr(), out.data_ptr(), values.shape[0],
-        values.shape[1], num_groups, _DTYPE_CODE[values.dtype],
-        torch.cuda.current_stream(values.device).cuda_stream)
-    _raise_on(err, "grouped_sum_multi")
+    out = _launch("ydb_grouped_sum_multi", values, gid, num_groups)
     LAUNCHES["grouped_sum_multi"] += 1
     return out
 
@@ -212,16 +333,9 @@ def grouped_sum(values: torch.Tensor, gid: torch.Tensor,
     _check(values, gid, num_groups, 1)
     if not values.is_cuda:
         return grouped_sum_plain(values, gid, num_groups)
-    values = values.contiguous()
-    gid = gid.contiguous()
-    out = torch.zeros((num_groups,), dtype=values.dtype, device=values.device)
-    err = _library().ydb_grouped_sum(
-        values.data_ptr(), gid.data_ptr(), out.data_ptr(), values.shape[0],
-        num_groups, _DTYPE_CODE[values.dtype],
-        torch.cuda.current_stream(values.device).cuda_stream)
-    _raise_on(err, "grouped_sum")
+    out = _launch("ydb_grouped_sum", values[:, None], gid, num_groups)
     LAUNCHES["grouped_sum"] += 1
-    return out
+    return out[:, 0]
 
 
 def scatter_sum_kernel(values, valid_row, gid, num_groups: int, dtype=None):
