@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--sf 10] [--hits-rows 10000000] [--json-out PATH]
+    python3 chip_smoke.py [--sf 10] [--sql-sf SF] [--hits-rows 10000000]
+                          [--json-out PATH]
                           [--baseline-source OLD_grouped_sum.cu]
 
 Phases, in order; any failure exits non-zero before the final line:
@@ -30,6 +31,17 @@ Phases, in order; any failure exits non-zero before the final line:
    ``--baseline-source``, an earlier kernel source is built and timed
    beside them. Then a sweep over slot counts and id mixes (one
    ``{"sweep": ...}`` line each).
+5. SQL path: the 22 TPC-H queries through the port's parser, planner and
+   plan walk (``execute_plan`` + ``to_host``) over all eight tables held
+   on the card. First at sf 0.01, seed 11, against the rows and digests
+   pinned in ``tests/golden_tpch.json``; then at ``--sql-sf`` (default:
+   ``--sf``, whose seed-42 tables the scan phase already generated), where
+   Q1, Q3, Q5, Q6, Q13 and Q18 are checked against independent numpy.
+   One ``{"sql": ...}`` line per query: first-run seconds, the median and
+   spread of three warm runs, result rows, peak device memory, the
+   launches of each CUDA kernel, and for one more warm run the device's
+   busy share (``torch.profiler``) and the seconds of each layer of the
+   plan walk (scans, joins, transforms; synced host clock).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -320,18 +332,35 @@ def kernel_phase(ck, dev) -> dict:
     return err
 
 
+def profiled(fn, attempts: int = 3):
+    """(profile, wall seconds) of one call of ``fn`` under
+    ``torch.profiler``, the call ending in a device sync. A window that
+    recorded no device event at all is a profiler miss (every caller's
+    call launches device work): it is taken again, up to ``attempts``
+    times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
+    return prof, wall
+
+
 def device_kernels_of_one_call(fn) -> list:
     """Names of the device operations (kernels, memsets, copies) that
     one warm call of ``fn`` issues, from a ``torch.profiler`` window."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(fn)
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
@@ -445,10 +474,356 @@ def stage(src, programs, dev):
     return exs, blocks, time.perf_counter() - t0
 
 
+# ---------------- phase 5: the SQL path ----------------
+
+
+def sql_database(tp, dev):
+    """A port Database over all eight tables of ``tp``, held on ``dev``,
+    and the planner's catalog."""
+    from ydb_tpu_torch.engine.scan import ColumnSource
+    from ydb_tpu_torch.plan import Database
+    from ydb_tpu_torch.sql.planner import Catalog
+    from ydb_tpu_torch.workload import tpch
+
+    db = Database(
+        sources={t: ColumnSource(c, tp.schema(t), tp.dicts).to_device(dev)
+                 for t, c in tp.tables.items()},
+        dicts=tp.dicts, device=dev)
+    catalog = Catalog(schemas={t: tp.schema(t) for t in tp.tables},
+                      primary_keys=dict(tpch.PRIMARY_KEYS), dicts=tp.dicts)
+    return db, catalog
+
+
+def plan_sql(sql, db, catalog):
+    """Plan one statement; uncorrelated scalar subqueries run on the
+    device while it plans (the reference's precompute phase)."""
+    from ydb_tpu_torch.plan import execute_plan, to_host
+    from ydb_tpu_torch.sql.parser import parse
+    from ydb_tpu_torch.sql.planner import plan_select_full
+
+    def scalar_exec(plan, t):
+        out = to_host(execute_plan(plan, db))
+        v, ok = out.cols[out.schema.names[0]]
+        assert len(v) == 1, f"scalar subquery returned {len(v)} rows"
+        return v[0].item(), bool(ok[0])
+
+    return plan_select_full(parse(sql), catalog, scalar_exec)
+
+
+def run_sql(pq, db):
+    from ydb_tpu_torch.plan import execute_plan, to_host
+
+    res = to_host(execute_plan(pq.plan, db))
+    if db.device is not None and torch.device(db.device).type == "cuda":
+        torch.cuda.synchronize()
+    res.dict_aliases = pq.dict_aliases
+    return res
+
+
+def golden_digest(out, dicts, fields=None) -> str:
+    """sha256 of a result as tests/test_tpch_sql.py pins it (floats
+    rounded to 6 places); over ``fields`` only when given."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in out.schema.fields:
+        if fields is not None and f.name not in fields:
+            continue
+        v, ok = out.cols[f.name]
+        ok = np.asarray(ok, dtype=bool)
+        h.update(f.name.encode())
+        if f.type.is_string:
+            src = out.dict_aliases.get(f.name, f.name)
+            vals = [(x.decode("latin1") if okk else None) for x, okk in zip(
+                dicts[src].decode(np.asarray(v, dtype=np.int32)), ok)]
+        elif f.type.is_floating:
+            vals = [(round(float(x), 6) if okk else None)
+                    for x, okk in zip(np.asarray(v), ok)]
+        else:
+            vals = [(int(x) if okk else None)
+                    for x, okk in zip(np.asarray(v), ok)]
+        h.update(json.dumps(vals).encode())
+    return h.hexdigest()
+
+
+def golden_check(dev) -> list:
+    """All 22 queries at the pinned (sf, seed) on the card against
+    tests/golden_tpch.json. A digest that differs only through a float
+    column is held against the port's CPU run of the same query (floats
+    rtol 1e-12, everything else exact) and reported; any other
+    difference fails. Returns those float-column exceptions."""
+    from ydb_tpu_torch.workload import tpch
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    golden = json.load(open(os.path.join(HERE, "tests", "golden_tpch.json")))
+    tp = tpch.TpchData(sf=golden["sf"], seed=golden["seed"])
+    db, catalog = sql_database(tp, dev)
+    cpu = None
+    exceptions = []
+    for name, want in golden["queries"].items():
+        res = run_sql(plan_sql(TPCH[name], db, catalog), db)
+        assert res.num_rows == want["rows"], (name, res.num_rows, want)
+        if golden_digest(res, tp.dicts) == want["sha"]:
+            continue
+        if cpu is None:
+            cpu = sql_database(tp, "cpu")
+        ref = run_sql(plan_sql(TPCH[name], *cpu), cpu[0])
+        assert golden_digest(ref, tp.dicts) == want["sha"], name
+        floats = [f.name for f in res.schema.fields if f.type.is_floating]
+        others = [f.name for f in res.schema.fields
+                  if not f.type.is_floating]
+        assert golden_digest(res, tp.dicts, others) == \
+            golden_digest(ref, tp.dicts, others), (name, "non-float columns")
+        differ = []
+        for col in floats:
+            (gv, go), (cv, co) = res.cols[col], ref.cols[col]
+            assert np.array_equal(go, co), (name, col, "validity")
+            np.testing.assert_allclose(gv[go], cv[co], rtol=1e-12,
+                                       err_msg=f"{name} {col}")
+            if golden_digest(res, tp.dicts, [col]) != \
+                    golden_digest(ref, tp.dicts, [col]):
+                differ.append(col)
+        exceptions.append({"query": name, "float_columns": differ})
+        log(f"golden {name}: digest differs on the card only through float "
+            f"column(s) {differ}; equal to the CPU run at rtol 1e-12")
+    log(f"SQL golden check: {len(golden['queries'])} queries at sf "
+        f"{golden['sf']}, seed {golden['seed']} match tests/golden_tpch.json"
+        f" on the card ({len(exceptions)} float-column exceptions)")
+    return exceptions
+
+
+def _decoded(res, col, dicts):
+    src = res.dict_aliases.get(col, col)
+    return dicts[src].decode(np.asarray(res.cols[col][0], dtype=np.int32))
+
+
+def _ints(res, col):
+    return np.asarray(res.cols[col][0]).astype(np.int64)
+
+
+def check_sql_q1(res, li, dicts):
+    check_q1(res, numpy_q1(li, tpch_days("1998-12-01") - 90))
+    keys = list(zip(_decoded(res, "l_returnflag", dicts),
+                    _decoded(res, "l_linestatus", dicts)))
+    assert keys == sorted(keys), keys
+
+
+def check_sql_q3(res, t, dicts):
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    d = tpch_days("1995-03-15")
+    cust_ok = c["c_mktsegment"] == dicts["c_mktsegment"].eq_id(b"BUILDING")
+    o_ok = (o["o_orderdate"] < d) & cust_ok[o["o_custkey"] - 1]
+    oi = li["l_orderkey"] - 1
+    m = (li["l_shipdate"] > d) & o_ok[oi]
+    rev = np.zeros(len(o_ok), dtype=np.int64)
+    np.add.at(rev, oi[m], li["l_extendedprice"][m]
+              * (100 - li["l_discount"][m]))
+    keys = np.unique(oi[m])
+    top = keys[np.lexsort((keys, o["o_orderdate"][keys], -rev[keys]))[:10]]
+    assert np.array_equal(_ints(res, "l_orderkey"), top + 1)
+    assert np.array_equal(_ints(res, "revenue"), rev[top])
+    assert np.array_equal(_ints(res, "o_orderdate"), o["o_orderdate"][top])
+    assert np.array_equal(_ints(res, "o_shippriority"),
+                          o["o_shippriority"][top])
+
+
+def check_sql_q5(res, t, dicts):
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    s, n, r = t["supplier"], t["nation"], t["region"]
+    asia = r["r_regionkey"][r["r_name"] == dicts["r_name"].eq_id(b"ASIA")]
+    nation_ok = np.isin(n["n_regionkey"], asia)
+    o_ok = ((o["o_orderdate"] >= tpch_days("1994-01-01"))
+            & (o["o_orderdate"] < tpch_days("1995-01-01")))
+    oi = li["l_orderkey"] - 1
+    supp_nat = s["s_nationkey"][li["l_suppkey"] - 1]
+    cust_nat = c["c_nationkey"][o["o_custkey"][oi] - 1]
+    m = o_ok[oi] & (cust_nat == supp_nat) & nation_ok[supp_nat]
+    rev = np.zeros(len(n["n_nationkey"]), dtype=np.int64)
+    np.add.at(rev, supp_nat[m], li["l_extendedprice"][m]
+              * (100 - li["l_discount"][m]))
+    present = np.flatnonzero(np.bincount(supp_nat[m], minlength=len(rev)))
+    order = present[np.argsort(-rev[present], kind="stable")]
+    assert np.array_equal(_ints(res, "revenue"), rev[order])
+    assert _decoded(res, "n_name", dicts) == \
+        dicts["n_name"].decode(n["n_name"][order])
+
+
+def check_sql_q6(res, li):
+    want = numpy_q6(li, tpch_days("1994-01-01"), tpch_days("1995-01-01"))
+    assert res.num_rows == 1 and int(_ints(res, "revenue")[0]) == want
+
+
+def check_sql_q13(res, t, dicts):
+    import re
+
+    o = t["orders"]
+    special = np.array([re.search(b"special.*requests", v, re.S) is not None
+                        for v in dicts["o_comment"].values])
+    keep = ~special[o["o_comment"]]
+    n_cust = len(t["customer"]["c_custkey"])
+    per_cust = np.bincount(o["o_custkey"][keep] - 1, minlength=n_cust)
+    dist = np.bincount(per_cust)
+    counts = np.flatnonzero(dist)
+    order = np.lexsort((-counts, -dist[counts]))
+    assert np.array_equal(_ints(res, "c_count"), counts[order])
+    assert np.array_equal(_ints(res, "custdist"), dist[counts][order])
+
+
+def check_sql_q18(res, t, dicts):
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    # per-order quantity sums stay far below 2^53: exact in float64
+    qty = np.bincount(li["l_orderkey"] - 1, weights=li["l_quantity"],
+                      minlength=len(o["o_orderkey"])).astype(np.int64)
+    big = np.flatnonzero(qty > 300_00)
+    top = big[np.lexsort((big, o["o_orderdate"][big],
+                          -o["o_totalprice"][big]))[:100]]
+    cust = o["o_custkey"][top]
+    assert np.array_equal(_ints(res, "o_orderkey"), top + 1)
+    assert np.array_equal(_ints(res, "c_custkey"), cust)
+    assert np.array_equal(_ints(res, "o_orderdate"), o["o_orderdate"][top])
+    assert np.array_equal(_ints(res, "o_totalprice"), o["o_totalprice"][top])
+    assert np.array_equal(_ints(res, "total_qty"), qty[top])
+    assert _decoded(res, "c_name", dicts) == \
+        dicts["c_name"].decode(c["c_name"][cust - 1])
+
+
+def layer_timers(cache):
+    """Wrap the plan walk's layer entry points, and the compiled
+    transforms in ``cache``, with host-clock timers, each call bracketed
+    by ``torch.cuda.synchronize()``: table scans, joins, transforms and
+    concats. Returns (seconds by layer, restore function)."""
+    from ydb_tpu_torch.plan import executor
+    from ydb_tpu_torch.ssa import join
+
+    totals: dict = {}
+    saved = {}
+
+    def timed(layer, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            totals[layer] = totals.get(layer, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for mod, name, layer in ((executor, "_scan_node", "scan"),
+                             (executor, "_materialize", "scan"),
+                             (join, "run_equi_join", "join"),
+                             (executor, "concat_blocks", "concat")):
+        saved[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, timed(layer, getattr(mod, name)))
+    # compiled transforms are cached as (run, aux) pairs
+    transforms = {k: v for k, v in cache.items() if isinstance(v, tuple)}
+    for k, (run, aux) in transforms.items():
+        cache[k] = (timed("transform", run), aux)
+
+    def restore():
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+        cache.update(transforms)
+
+    return totals, restore
+
+
+def profile_sql(pq, db) -> dict:
+    """Where one warm run of a planned query spends its time: one run
+    under ``torch.profiler`` (device busy time as the union of device
+    intervals, its share of the wall time, device operations, the top
+    kernels), then one run with the walk's layers timed."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from profile_torch_scan import kernel_stats
+
+    prof, wall = profiled(lambda: run_sql(pq, db))
+    busy_us, ops, top = kernel_stats(prof, 3)
+    totals, restore = layer_timers(db._compile_cache)
+    try:
+        t0 = time.perf_counter()
+        run_sql(pq, db)
+        synced = time.perf_counter() - t0
+    finally:
+        restore()
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall, "device_ops": ops,
+            "top_kernels": top, "synced_wall_s": synced,
+            "layers_s": dict(sorted(totals.items()))}
+
+
+def sql_phase(tp, dev, ck) -> list:
+    """The 22 queries at the scale of ``tp`` on the card: per query the
+    plan time, the first run, three warm runs, result rows, peak device
+    memory (reset per query), the CUDA kernels' launches (counted from
+    zero for the query's first run and read just after it), and where a
+    warm run's time goes (``profile_sql``)."""
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    t = tp.tables
+    for table, key in (("orders", "o_orderkey"), ("customer", "c_custkey"),
+                       ("supplier", "s_suppkey")):
+        # the numpy checks index these tables by key - 1
+        assert np.array_equal(t[table][key],
+                              np.arange(1, len(t[table][key]) + 1)), table
+    t0 = time.perf_counter()
+    db, catalog = sql_database(tp, dev)
+    torch.cuda.synchronize()
+    log(f"SQL: {len(t)} tables ({sum(len(next(iter(c.values()))) for c in t.values())} rows) "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    checks = {
+        "q1": lambda r: check_sql_q1(r, t["lineitem"], tp.dicts),
+        "q3": lambda r: check_sql_q3(r, t, tp.dicts),
+        "q5": lambda r: check_sql_q5(r, t, tp.dicts),
+        "q6": lambda r: check_sql_q6(r, t["lineitem"]),
+        "q13": lambda r: check_sql_q13(r, t, tp.dicts),
+        "q18": lambda r: check_sql_q18(r, t, tp.dicts),
+    }
+    rows = []
+    for name in sorted(TPCH, key=lambda q: int(q[1:])):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pq = plan_sql(TPCH[name], db, catalog)
+        plan_s = time.perf_counter() - t0
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = run_sql(pq, db)
+        first_s = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = run_sql(pq, db)
+            warm.append(time.perf_counter() - t0)
+        assert again.num_rows == res.num_rows, name
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = profile_sql(pq, db)
+        checked = name in checks
+        if checked:
+            checks[name](res)
+        row = {"query": name, "sf": tp.sf, "rows": res.num_rows,
+               "plan_s": plan_s, "first_s": first_s,
+               "warm_median_s": statistics.median(warm), "warm_s": warm,
+               "warm_spread": max(warm) / min(warm),
+               "peak_device_bytes": peak, "resident_bytes": base,
+               "query_peak_bytes": peak - base, "launches": launches,
+               "numpy_checked": checked, **prof}
+        rows.append(row)
+        log(json.dumps({"sql": row}))
+    return rows
+
+
+def tpch_days(s: str) -> int:
+    return int(np.datetime64(s, "D").astype(np.int32))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor (default 10)")
+    ap.add_argument("--sql-sf", type=float, default=None,
+                    help="TPC-H scale factor of the SQL phase (default: "
+                    "--sf, reusing the scan phase's tables)")
     ap.add_argument("--hits-rows", type=int, default=10_000_000,
                     help="ClickBench hits rows (published: 99997497)")
     ap.add_argument("--json-out", default=None,
@@ -647,10 +1022,27 @@ def main(argv=None) -> int:
     metrics["q33_fused_launches_per_run"] = per_query["q33_fused"]["launches"]
     metrics["q33_peragg_launches_per_run"] = per_query["q33_peragg"]["launches"]
 
+    # ---- phase 5: the SQL path ----
+    del li_blocks, cb_blocks, outs, ex1, ex6, ex33, ex36, runs
+    torch.cuda.empty_cache()
+    exceptions = golden_check(dev)
+    sql_tp = (tp if args.sql_sf in (None, args.sf)
+              else tpch.TpchData(sf=args.sql_sf, seed=42))
+    sql_rows = sql_phase(sql_tp, dev, ck)
+    sql_launches = {k: sum(r["launches"][k] for r in sql_rows)
+                    for k in ck.LAUNCHES}
+    log(f"SQL path: 22 queries at sf {sql_tp.sf} on the card; Q1, Q3, Q5, "
+        f"Q6, Q13, Q18 equal numpy; CUDA kernel launches over all first "
+        f"runs {sql_launches}")
+    for row in kernel_rows:
+        row["sql_launches"] = sql_launches[row["name"]]
+
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
                   peak_device_bytes=peak_bytes,
-                  sf=args.sf, lineitem_rows=n_li, hits_rows=args.hits_rows)
+                  sf=args.sf, lineitem_rows=n_li, hits_rows=args.hits_rows,
+                  sql=sql_rows, sql_sf=sql_tp.sf,
+                  sql_golden_float_exceptions=exceptions)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

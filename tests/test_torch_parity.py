@@ -222,6 +222,28 @@ def _assert_blocks(port, ref, rtol=None):
         assert_same(pd[k][rv[k]], rd[k][rv[k]], rtol=rtol, what=k)
 
 
+@pytest.mark.parametrize("capacity", [None, 1 << 14])
+def test_concat_blocks_matches_reference(capacity):
+    """Live rows of several blocks, in block order, NULLs kept; a column
+    is nullable in the result when it is in any input."""
+    rng = np.random.default_rng(8)
+    pairs = []
+    for i, (n, cap) in enumerate(((700, 1024), (0, 1024), (3000, 4096),
+                                  (1024, 1024))):
+        arrays = {"a": rng_i64(rng, n), "s": rng.integers(
+            0, 50, n).astype(np.int32), "f": rng.random(n)}
+        valid = {"a": rng.random(n) > 0.2}
+        rsch = rdt.schema(("a", rdt.INT64, i == 2), ("s", rdt.STRING, False),
+                          ("f", rdt.DOUBLE, False))
+        pairs.append(_both_blocks(arrays, rsch, valid, cap))
+    r = rblock.concat_blocks([p[0] for p in pairs], capacity=capacity)
+    t = tblock.concat_blocks([p[1] for p in pairs], capacity=capacity)
+    assert t.schema == interop.program_from_reference(r.schema)
+    assert t.capacity == r.capacity
+    assert int(t.length) == int(r.length) == 4724
+    _assert_blocks(t, r)
+
+
 def test_compact_is_stable():
     rng = np.random.default_rng(3)
     n = 3000
@@ -704,15 +726,28 @@ def test_var_stddev_through_compiler():
 
 
 def test_window_and_udf_are_not_ported_yet():
-    sch = tdt.schema(("g", tdt.INT64, False), ("v", tdt.INT64, False))
-    from ydb_tpu_torch.ssa.program import (Col, Program, UdfCall,
-                                           AssignStep, WindowStep)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        tcompile(Program((WindowStep("rank", ("g",), ("v",), (False,), "r"),)),
-                 sch)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        tcompile(Program((AssignStep(
-            "u", UdfCall("f", (Col("v"),), tdt.INT64, lambda x: x)),)), sch)
+    """The two lowerings that slice 1 left out (a window step and a UDF
+    call) now compile in the port and agree with the reference: same
+    output schema, length, validity and values."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    g = rng.integers(0, 9, n).astype(np.int64)
+    v = rng.integers(-50, 50, n).astype(np.int64)
+    ref_blk, port_blk = _both_blocks(
+        {"g": g, "v": v},
+        rdt.schema(("g", rdt.INT64, False), ("v", rdt.INT64, False)), None)
+    prog = rprog.Program((
+        rprog.AssignStep("u", rprog.UdfCall(
+            "f", (rprog.Col("v"), rprog.Col("g")), rdt.INT64,
+            lambda x, y: x * 3 - y)),
+        rprog.WindowStep("rank", ("g",), ("u",), (False,), "r"),
+    ))
+    rcp = rcompile(prog, ref_blk.schema)
+    tcp = tcompile(interop.program_from_reference(prog), port_blk.schema)
+    assert tcp.out_schema == interop.program_from_reference(rcp.out_schema)
+    r, t = rcp(ref_blk), tcp(port_blk)
+    assert int(t.length) == int(r.length) == n
+    _assert_blocks(t, r)
 
 
 # ---------------- interop ----------------

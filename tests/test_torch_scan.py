@@ -85,8 +85,12 @@ def assert_tables_equal(port: OracleTable, ref, what=""):
 
 def test_tpch_generator_matches_reference(tpch_pair):
     ref, port = tpch_pair
-    for table in ("lineitem", "orders"):
+    assert ref.tables.keys() == port.tables.keys()
+    assert len(port.tables) == 8
+    for table in ref.tables:
         assert ref.tables[table].keys() == port.tables[table].keys()
+        assert interop.program_from_reference(ref.schema(table)) == \
+            port.schema(table)
         for k, v in ref.tables[table].items():
             assert port.tables[table][k].dtype == v.dtype, k
             np.testing.assert_array_equal(port.tables[table][k], v, err_msg=k)
@@ -98,6 +102,7 @@ def test_tpch_generator_matches_reference(tpch_pair):
         ttpch.q1_program()
     assert interop.program_from_reference(rtpch.q6_program()) == \
         ttpch.q6_program()
+    assert ttpch.PRIMARY_KEYS == rtpch.PRIMARY_KEYS
 
 
 def test_clickbench_generator_matches_reference(hits_pair):
@@ -202,6 +207,15 @@ def test_entry_matches_reference_entry():
             np.testing.assert_array_equal(td[k][rv[k]], rd[k][rv[k]])
 
 
+#: the SQL path's modules, each of which the import check must reach
+SQL_PATH_MODULES = (
+    "ydb_tpu_torch.sql", "ydb_tpu_torch.sql.ast", "ydb_tpu_torch.sql.parser",
+    "ydb_tpu_torch.sql.planner", "ydb_tpu_torch.plan",
+    "ydb_tpu_torch.plan.nodes", "ydb_tpu_torch.plan.executor",
+    "ydb_tpu_torch.ssa.join", "ydb_tpu_torch.workload.queries",
+)
+
+
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
     """Every module of ydb_tpu_torch, and chip_smoke.py, imports with jax
     made unimportable, and leaves no ydb_tpu module behind."""
@@ -218,9 +232,11 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
                      if m == "ydb_tpu" or m.startswith("ydb_tpu.")
                      or m == "jax" and sys.modules[m] is not None)
         assert not bad, bad
+        missing = sorted(set(%r) - set(names))
+        assert not missing, missing
         print(len(names))
-    """)
+    """ % (SQL_PATH_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 15 + len(SQL_PATH_MODULES)

@@ -72,10 +72,13 @@ class TableBlock:
     ) -> "TableBlock":
         """Build a block from host numpy arrays (already physically
         encoded) on ``device`` (CUDA unless the caller names another).
+        An array may also be a tensor (a device-resident source's slice):
+        it moves to ``device`` as it is.
 
-        Only a short tail is ever padded. On the CPU a capacity-aligned
-        array is shared with the block, not copied, so callers must not
-        mutate ``arrays``/``validity`` after handing them over.
+        Only a short tail is ever padded. A capacity-aligned array or
+        tensor already on ``device`` is shared with the block, not copied,
+        so callers must not mutate ``arrays``/``validity`` after handing
+        them over.
         """
         dev = resolve_device(device)
         n = len(next(iter(arrays.values()))) if arrays else 0
@@ -87,8 +90,11 @@ class TableBlock:
         for name in schema.names:
             f = schema.field(name)
             tdt = dtypes.torch_dtype(f.type)
-            a = np.ascontiguousarray(arrays[name], dtype=f.type.physical)
             v = None if validity is None else validity.get(name)
+            if isinstance(arrays[name], torch.Tensor):
+                cols[name] = _tensor_column(arrays[name], v, n, cap, dev, tdt)
+                continue
+            a = np.ascontiguousarray(arrays[name], dtype=f.type.physical)
             v = (np.ones(n, dtype=np.bool_) if v is None
                  else np.ascontiguousarray(v, dtype=np.bool_))
             if cap != n:
@@ -147,6 +153,18 @@ class TableBlock:
         return data, valid
 
 
+def _tensor_column(a: torch.Tensor, v, n: int, cap: int,
+                   dev: torch.device, tdt: torch.dtype) -> Column:
+    """A column from a tensor slice: tail-padded like host arrays."""
+    a = a.to(device=dev, dtype=tdt)
+    v = (torch.ones(n, dtype=torch.bool, device=dev) if v is None
+         else v.to(device=dev, dtype=torch.bool))
+    if cap != n:
+        a = torch.cat([a, a.new_zeros(cap - n)])
+        v = torch.cat([v, v.new_zeros(cap - n)])
+    return Column(a, v)
+
+
 def device_aux(aux: Mapping[str, object],
                device: "str | torch.device") -> dict:
     """Stage a compiled program's aux tables (dict masks, gather tables)
@@ -163,8 +181,11 @@ def device_aux(aux: Mapping[str, object],
 
 def concat_blocks(blocks: list[TableBlock],
                   capacity: int | None = None) -> TableBlock:
-    """Host-side concat of live rows into one block on the first block's
-    device (filter-only scan results)."""
+    """Concat of the live rows of ``blocks``, in order, into one block on
+    the first block's device. The result equals the reference's host-side
+    concat (the live rows, padded at the tail to ``capacity`` or to the
+    1024-row quantum), but the rows stay on the device; only the lengths
+    are read back."""
     if not blocks:
         raise ValueError("concat of no blocks")
     schema = blocks[0].schema
@@ -176,10 +197,24 @@ def concat_blocks(blocks: list[TableBlock],
                 f.name, f.type,
                 any(b.schema.field(f.name).nullable for b in blocks))
             for f in schema.fields))
-    host = [b.host_columns() for b in blocks]
-    arrays = {name: np.concatenate([d[name] for d, _ in host])
-              for name in schema.names}
-    validity = {name: np.concatenate([v[name] for _, v in host])
-                for name in schema.names}
-    return TableBlock.from_numpy(arrays, schema, validity, capacity=capacity,
-                                 device=blocks[0].device)
+    dev = blocks[0].device
+    lens = [int(b.length) for b in blocks]
+    n = sum(lens)
+    cap = capacity if capacity is not None else _round_up(
+        max(n, 1), DEFAULT_CAPACITY_QUANTUM)
+    if cap < n:
+        raise ValueError(f"capacity {cap} < rows {n}")
+    cols = {}
+    for name in schema.names:
+        tdt = dtypes.torch_dtype(schema.field(name).type)
+        data = torch.zeros(cap, dtype=tdt, device=dev)
+        valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+        off = 0
+        for b, m in zip(blocks, lens):
+            c = b.columns[name]
+            data[off:off + m] = c.data[:m].to(dev)
+            valid[off:off + m] = c.validity[:m].to(dev)
+            off += m
+        cols[name] = Column(data, valid)
+    length = torch.tensor(n, dtype=torch.int32, device=dev)
+    return TableBlock(cols, length, schema)

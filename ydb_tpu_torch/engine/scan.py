@@ -40,7 +40,8 @@ DEFAULT_BLOCK_ROWS = 1 << 20
 
 @dataclasses.dataclass
 class ColumnSource:
-    """A host-resident columnar table (one shard's worth of data)."""
+    """A columnar table (one shard's worth of data): host numpy arrays,
+    or tensors on a device after ``to_device``."""
 
     columns: dict[str, np.ndarray]
     schema: dtypes.Schema
@@ -72,6 +73,24 @@ class ColumnSource:
                 }
             yield TableBlock.from_numpy(arrays, sch, validity, capacity=cap,
                                         device=device)
+
+    def to_device(self, device: "str | torch.device | None" = None
+                  ) -> "ColumnSource":
+        """This table with every column held as a tensor on ``device``
+        (CUDA unless the caller names another). Its blocks on that device
+        are then slices of the resident columns: a scan copies nothing
+        from the host."""
+        dev = resolve_device(device)
+
+        def put(a, typ):
+            return torch.from_numpy(np.ascontiguousarray(
+                a, dtype=typ.physical)).to(dev)
+
+        cols = {n: put(a, self.schema.field(n).type)
+                for n, a in self.columns.items()}
+        validity = ({n: put(v, dtypes.BOOL) for n, v in self.validity.items()}
+                    if self.validity else None)
+        return ColumnSource(cols, self.schema, self.dicts, validity)
 
 
 def merge_blocks_device(blocks: list[TableBlock]) -> TableBlock:
@@ -171,6 +190,7 @@ class ScanExecutor:
         source: ColumnSource,
         block_rows: int = DEFAULT_BLOCK_ROWS,
         device: "str | torch.device | None" = None,
+        key_spaces: dict[str, int] | None = None,
     ):
         self.device = resolve_device(device)
         self.source = source
@@ -192,7 +212,7 @@ class ScanExecutor:
         self._out_nullable = check_program(program, in_schema).out_nullable
         self.partial_prog, self.final_prog = twophase.split(program)
         self.partial = compile_program(
-            self.partial_prog, in_schema, source.dicts)
+            self.partial_prog, in_schema, source.dicts, key_spaces)
         self._partial_aux = device_aux(self.partial.aux, self.device)
         self._combine = None
         self._combine_aux = {}
@@ -201,7 +221,7 @@ class ScanExecutor:
         ):
             comb = compile_program(
                 twophase.combine_of(program), self.partial.out_schema,
-                source.dicts,
+                source.dicts, key_spaces,
                 dict_aliases=twophase.dict_aliases(self.partial_prog),
             )
             self._combine = comb.run
@@ -209,7 +229,7 @@ class ScanExecutor:
         if self.final_prog is not None:
             self.final = compile_program(
                 self.final_prog, self.partial.out_schema, source.dicts,
-                dict_aliases=twophase.dict_aliases(self.partial_prog),
+                key_spaces, dict_aliases=twophase.dict_aliases(self.partial_prog),
             )
             self._final_aux = device_aux(self.final.aux, self.device)
             self.out_schema = self._stamp_nullability(self.final.out_schema)
@@ -218,6 +238,12 @@ class ScanExecutor:
             self.out_schema = self._stamp_nullability(
                 self.partial.out_schema)
             self._final_aux = {}
+
+    def detach(self) -> "ScanExecutor":
+        """Drop the source reference, keeping the compiled state only:
+        an executor cached across statements must not pin a table."""
+        self.source = None
+        return self
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

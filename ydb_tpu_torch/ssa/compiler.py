@@ -10,10 +10,8 @@ fixes the output schema — identically to the JAX package, so both give
 the same ``group_layout`` and output schema for a program. The result is
 ``run(block, aux) -> block``: plain torch operations on the block's
 device, run eagerly (there is no trace), none of which waits for the
-device.
-
-Not on the ported slice yet: ``WindowStep`` and ``UdfCall`` raise
-``NotImplementedError`` when a program containing them is compiled.
+device — except a ``UdfCall``, whose user function runs on the host
+between two device operations.
 """
 
 from __future__ import annotations
@@ -49,10 +47,6 @@ from ydb_tpu_torch.ssa.program import (
     agg_result_type,
     infer_type,
 )
-
-_NOT_PORTED = ("{} lowering is not ported to torch yet "
-               "(ROADMAP.md, queue A item 5: window steps and UDF calls)")
-
 
 @dataclasses.dataclass
 class CompiledProgram:
@@ -173,7 +167,7 @@ def compile_program(
         if isinstance(expr, DictMap):
             return _resolve_dict_map(ctx, expr, cur_types)
         if isinstance(expr, UdfCall):
-            raise NotImplementedError(_NOT_PORTED.format("UdfCall"))
+            return _resolve_udf(expr, resolve_expr)
         assert isinstance(expr, Call)
         return _resolve_call(ctx, expr, cur_types, resolve_expr)
 
@@ -222,7 +216,33 @@ def compile_program(
                 ("sort", (tuple(step.keys), tuple(desc), step.limit,
                           tuple(ranks))))
         elif isinstance(step, WindowStep):
-            raise NotImplementedError(_NOT_PORTED.format("WindowStep"))
+            if step.func not in ("rank", "dense_rank", "row_number"):
+                raise NotImplementedError(
+                    f"window function {step.func}")
+            # string keys compare by dictionary RANK (partition needs
+            # only equality, but ranks are equality-preserving too, so
+            # one treatment covers both roles)
+            wranks = []
+            for k in step.partition + step.order_keys:
+                t = cur_types[k]
+                if t.is_string:
+                    d = ctx.dictionary(k)
+                    if d is None:
+                        raise ValueError(
+                            f"window key on string column {k} needs"
+                            " its dictionary")
+                    wranks.append(
+                        ctx.add_aux(f"wrank.{k}", d.sort_rank()))
+                else:
+                    wranks.append(None)
+            desc = step.descending or (False,) * len(step.order_keys)
+            cur_types[step.out_name] = dtypes.INT64
+            if step.out_name not in cur_names:
+                cur_names.append(step.out_name)
+            plan.append(("window", (
+                step.func, tuple(step.partition),
+                tuple(step.order_keys), tuple(desc), tuple(wranks),
+                step.out_name)))
         else:
             raise NotImplementedError(f"step {step}")
 
@@ -285,12 +305,87 @@ def compile_program(
                 env = {n: blk.columns[n] for n in names}
                 length = blk.length
                 mask = blk.row_mask()
+            elif kind == "window":
+                out_name = payload[-1]
+                env[out_name] = _window(env, aux, mask, length, payload)
+                if out_name not in names:
+                    names.append(out_name)
         out_cols = {n: env[n] for n in out_schema.names}
         blk = TableBlock(out_cols, length, out_schema)
         return kernels.compact(blk, mask)
 
     return CompiledProgram(run=run, aux=ctx.aux, out_schema=out_schema,
                            in_schema=schema, group_layout=ctx.group_layout)
+
+
+def _window(env, aux, mask, length, payload) -> Column:
+    """rank / dense_rank / row_number over (partition, order keys): one
+    lexsort (liveness, then partition, then order keys), segment starts
+    by a running max, and a scatter back through the sort permutation.
+    Rows masked by an earlier filter sort last and take no rank."""
+    func, pkeys, okeys, desc, wranks, _ = payload
+    cap = next(iter(env.values())).data.shape[0]
+    dev = mask.device
+    idx = torch.arange(cap, dtype=torch.int64, device=dev)
+    live = mask & (idx < length)
+    vals = []
+    for k, rk in zip(pkeys + okeys, wranks):
+        c = env[k]
+        if rk is not None:
+            c = kernels.dict_gather(aux[rk], c)
+        d = c.data
+        if d.dtype == torch.bool:
+            d = d.to(torch.int32)
+        vals.append(d)
+    pvals = vals[:len(pkeys)]
+    ovals = [-d if dsc else d for d, dsc in zip(vals[len(pkeys):], desc)]
+    # _lexsort: LAST key is primary — liveness first, then partition,
+    # then order keys
+    perm = kernels._lexsort(list(reversed(
+        [(~live).to(torch.int32)] + pvals + ovals)))
+
+    def changed(cols_sorted):
+        ch = idx == 0
+        for c in cols_sorted:
+            ch = ch | (c != torch.roll(c, 1))
+        return ch
+
+    new_part = changed([c[perm] for c in pvals])
+    new_order = new_part | changed([c[perm] for c in ovals])
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    seg_start = torch.cummax(torch.where(new_part, idx, zero), 0).values
+    if func == "row_number":
+        out_sorted = idx - seg_start + 1
+    elif func == "rank":
+        peer_start = torch.cummax(
+            torch.where(new_order, idx, zero), 0).values
+        out_sorted = peer_start - seg_start + 1
+    else:  # dense_rank
+        dense = torch.cumsum(new_order.to(torch.int64), 0)
+        out_sorted = dense - dense[seg_start] + 1
+    out = torch.zeros(cap, dtype=torch.int64, device=dev)
+    out[perm] = out_sorted
+    return Column(out, live)
+
+
+def _resolve_udf(expr: UdfCall, resolve_expr):
+    """A scalar UDF: the argument columns go to the host, the user
+    function runs over numpy arrays there, and its result comes back to
+    the block's device. Valid where every argument is valid."""
+    arg_fns = tuple(resolve_expr(a)[0] for a in expr.args)
+    out_dtype = expr.out_type.physical
+    user_fn = expr.fn
+
+    def lower_udf(env, aux):
+        cols = [f(env, aux) for f in arg_fns]
+        valid = cols[0].validity
+        for c in cols[1:]:
+            valid = valid & c.validity
+        host = [c.data.cpu().numpy() for c in cols]
+        res = np.asarray(user_fn(*host), dtype=out_dtype)
+        return Column(torch.as_tensor(res, device=valid.device), valid)
+
+    return lower_udf, expr.out_type
 
 
 # ---------------- expression lowering helpers ----------------

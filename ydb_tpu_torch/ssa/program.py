@@ -65,9 +65,9 @@ class UdfCall:
     """A registered scalar UDF applied elementwise (the UDF ABI analog,
     ydb/library/yql/public/udf; SURVEY §2.9 UDF row). ``fn`` is the
     host-side vectorized implementation (numpy arrays in/out), resolved
-    from the registry at plan time and carried in the node; the device
-    lowering is not ported yet (the compiler raises), the oracle calls it
-    directly. NULLs:
+    from the registry at plan time and carried in the node; the torch
+    lowering runs it on the host between two device operations (argument
+    columns out, result back), the oracle calls it directly. NULLs:
     output row is NULL iff any argument is NULL."""
 
     name: str

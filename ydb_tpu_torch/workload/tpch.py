@@ -1,13 +1,12 @@
-"""TPC-H workload: deterministic data generator + Q1/Q6 as SSA programs.
+"""TPC-H workload: deterministic data generator + queries as SSA programs
+and logical plans.
 
-The port's copy of the lineitem/orders part of ``ydb_tpu/workload/tpch.py``
-(the reference ships dbgen-compatible generators,
-ydb/library/workload/tpch/). ``TpchData`` draws from the same numpy
-random stream in the same order as the reference's generator, whose
-first step is ``_gen_orders_lineitem``, so a seed gives arrays identical
-to the reference's ``lineitem`` and ``orders`` tables. The other tables
-(customer, supplier, part, partsupp, nation, region) are not on the
-ported slice and are not generated.
+The port's copy of ``ydb_tpu/workload/tpch.py`` (the reference ships
+dbgen-compatible generators, ydb/library/workload/tpch/): all eight
+tables, drawn from one numpy random stream in the reference's order, so a
+seed gives arrays and dictionaries identical to the reference's (the
+pinned TPC-H digests depend on it). Not copied: ``lineitem_chunks``, the
+reference's out-of-core chunked generator.
 
 Dates are int32 days since epoch; money columns are decimal(2) scaled
 int64, matching dbgen's cent-exact semantics.
@@ -29,6 +28,7 @@ from ydb_tpu_torch.ssa.program import (
     FilterStep,
     GroupByStep,
     Program,
+    ProjectStep,
     SortStep,
     decimal_lit,
 )
@@ -69,13 +69,104 @@ ORDERS_SCHEMA = dtypes.schema(
     ("o_comment", dtypes.STRING, False),
 )
 
+CUSTOMER_SCHEMA = dtypes.schema(
+    ("c_custkey", dtypes.INT64, False),
+    ("c_name", dtypes.STRING, False),
+    ("c_address", dtypes.STRING, False),
+    ("c_nationkey", dtypes.INT32, False),
+    ("c_phone", dtypes.STRING, False),
+    ("c_acctbal", DEC2, False),
+    ("c_mktsegment", dtypes.STRING, False),
+    ("c_comment", dtypes.STRING, False),
+)
+
+SUPPLIER_SCHEMA = dtypes.schema(
+    ("s_suppkey", dtypes.INT64, False),
+    ("s_name", dtypes.STRING, False),
+    ("s_address", dtypes.STRING, False),
+    ("s_nationkey", dtypes.INT32, False),
+    ("s_phone", dtypes.STRING, False),
+    ("s_acctbal", DEC2, False),
+    ("s_comment", dtypes.STRING, False),
+)
+
+PART_SCHEMA = dtypes.schema(
+    ("p_partkey", dtypes.INT64, False),
+    ("p_name", dtypes.STRING, False),
+    ("p_mfgr", dtypes.STRING, False),
+    ("p_brand", dtypes.STRING, False),
+    ("p_type", dtypes.STRING, False),
+    ("p_size", dtypes.INT32, False),
+    ("p_container", dtypes.STRING, False),
+    ("p_retailprice", DEC2, False),
+)
+
+PARTSUPP_SCHEMA = dtypes.schema(
+    ("ps_partkey", dtypes.INT64, False),
+    ("ps_suppkey", dtypes.INT64, False),
+    ("ps_availqty", dtypes.INT32, False),
+    ("ps_supplycost", DEC2, False),
+)
+
+NATION_SCHEMA = dtypes.schema(
+    ("n_nationkey", dtypes.INT32, False),
+    ("n_regionkey", dtypes.INT32, False),
+    ("n_name", dtypes.STRING, False),
+)
+
+REGION_SCHEMA = dtypes.schema(
+    ("r_regionkey", dtypes.INT32, False),
+    ("r_name", dtypes.STRING, False),
+)
+
+NATIONS = [
+    b"ALGERIA", b"ARGENTINA", b"BRAZIL", b"CANADA", b"EGYPT", b"ETHIOPIA",
+    b"FRANCE", b"GERMANY", b"INDIA", b"INDONESIA", b"IRAN", b"IRAQ",
+    b"JAPAN", b"JORDAN", b"KENYA", b"MOROCCO", b"MOZAMBIQUE", b"PERU",
+    b"CHINA", b"ROMANIA", b"SAUDI ARABIA", b"VIETNAM", b"RUSSIA",
+    b"UNITED KINGDOM", b"UNITED STATES",
+]
+NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2,
+                 3, 4, 2, 3, 3, 1]
+REGIONS = [b"AFRICA", b"AMERICA", b"ASIA", b"EUROPE", b"MIDDLE EAST"]
+SEGMENTS = [b"AUTOMOBILE", b"BUILDING", b"FURNITURE", b"MACHINERY",
+            b"HOUSEHOLD"]
 SHIPMODES = [b"REG AIR", b"AIR", b"RAIL", b"SHIP", b"TRUCK", b"MAIL", b"FOB"]
 INSTRUCTS = [b"DELIVER IN PERSON", b"COLLECT COD", b"NONE",
              b"TAKE BACK RETURN"]
 PRIORITIES = [b"1-URGENT", b"2-HIGH", b"3-MEDIUM", b"4-NOT SPECIFIED",
               b"5-LOW"]
 
-
+# dbgen text grammar stand-ins: bounded pools keep dictionary sizes (and
+# plan-time LIKE-mask evaluation) independent of SF while preserving the
+# patterns the TPC-H predicates probe for (p_name '%green%', o_comment
+# '%special%requests%', s_comment '%Customer%Complaints%', p_type
+# '%BRASS' / 'PROMO%', ...). Reference grammar: dbgen dists.dss via
+# ydb/library/workload/tpch_workload.cpp data generators.
+COLORS = [
+    b"almond", b"antique", b"aquamarine", b"azure", b"beige", b"bisque",
+    b"black", b"blanched", b"blue", b"blush", b"brown", b"burlywood",
+    b"burnished", b"chartreuse", b"chiffon", b"chocolate", b"coral",
+    b"cornflower", b"cornsilk", b"cream", b"cyan", b"dark", b"deep",
+    b"dim", b"dodger", b"drab", b"firebrick", b"floral", b"forest",
+    b"frosted", b"gainsboro", b"ghost", b"goldenrod", b"green", b"grey",
+    b"honeydew", b"hot", b"indian", b"ivory", b"khaki", b"lace",
+    b"lavender", b"lawn", b"lemon", b"light", b"lime", b"linen",
+    b"magenta", b"maroon", b"medium", b"metallic", b"midnight", b"mint",
+    b"misty", b"moccasin", b"navajo", b"navy", b"olive", b"orange",
+    b"orchid", b"pale", b"papaya", b"peach", b"peru", b"pink", b"plum",
+    b"powder", b"puff", b"purple", b"red", b"rose", b"rosy", b"royal",
+    b"saddle", b"salmon", b"sandy", b"seashell", b"sienna", b"sky",
+    b"slate", b"smoke", b"snow", b"spring", b"steel", b"tan", b"thistle",
+    b"tomato", b"turquoise", b"violet", b"wheat", b"white", b"yellow",
+]
+TYPE_SYL1 = [b"STANDARD", b"SMALL", b"MEDIUM", b"LARGE", b"ECONOMY",
+             b"PROMO"]
+TYPE_SYL2 = [b"ANODIZED", b"BURNISHED", b"PLATED", b"POLISHED", b"BRUSHED"]
+TYPE_SYL3 = [b"TIN", b"NICKEL", b"BRASS", b"STEEL", b"COPPER"]
+CONTAINER_SYL1 = [b"SM", b"LG", b"MED", b"JUMBO", b"WRAP"]
+CONTAINER_SYL2 = [b"CASE", b"BOX", b"BAG", b"JAR", b"PKG", b"PACK", b"CAN",
+                  b"DRUM"]
 COMMENT_WORDS = [
     b"furiously", b"carefully", b"quickly", b"blithely", b"slyly",
     b"express", b"regular", b"final", b"ironic", b"pending", b"bold",
@@ -86,7 +177,6 @@ COMMENT_WORDS = [
     b"integrate", b"Customer", b"Complaints", b"above", b"against",
     b"along",
 ]
-
 
 
 def _register(dicts: DictionarySet, col: str, values) -> np.ndarray:
@@ -112,9 +202,18 @@ def _make_comment_pool(rng, size: int, n_words: int = 5) -> list[bytes]:
     return out
 
 
+def _encode_values(dicts: DictionarySet, col: str, values) -> np.ndarray:
+    """Bulk encode a (possibly huge, mostly-distinct) value list: register
+    each distinct value once, then map by index — O(n log n) instead of n
+    Python dict probes."""
+    arr = np.asarray(values, dtype=object)
+    uniq, inv = np.unique(arr, return_inverse=True)
+    ids = _register(dicts, col, list(uniq))
+    return ids[inv].astype(np.int32)
+
+
 class TpchData:
-    """Generated ``lineitem`` and ``orders`` as host numpy column dicts +
-    shared dictionaries."""
+    """Generated tables as host numpy column dicts + shared dictionaries."""
 
     def __init__(self, sf: float, seed: int = 42):
         self.sf = sf
@@ -122,6 +221,10 @@ class TpchData:
         rng = np.random.default_rng(seed)
         self.tables: dict[str, dict[str, np.ndarray]] = {}
         self._gen_orders_lineitem(rng)
+        self._gen_customer(rng)
+        self._gen_supplier(rng)
+        self._gen_part_partsupp(rng)
+        self._gen_nation_region()
 
     # dbgen cardinalities: orders = 1.5M * SF; lineitem ~ 4 lines/order
     def _gen_orders_lineitem(self, rng):
@@ -226,8 +329,148 @@ class TpchData:
                 rng.integers(0, len(pool), n_orders)),
         }
 
+    @staticmethod
+    def _phones(rng, nationkey: np.ndarray) -> list[bytes]:
+        """dbgen phone format: 'CC-xxx-xxx-xxxx', CC = 10 + nationkey
+        (q22 reads substring(c_phone, 1, 2) as the country code)."""
+        digits = rng.integers(0, 10, (len(nationkey), 10))
+        return [
+            b"%d-%d%d%d-%d%d%d-%d%d%d%d" % ((10 + int(nk),) + tuple(d))
+            for nk, d in zip(nationkey, digits)
+        ]
+
+    def _gen_customer(self, rng):
+        n = max(int(150_000 * self.sf), 1)
+        seg = rng.integers(0, len(SEGMENTS), n)
+        sd = self.dicts.for_column("c_mktsegment")
+        seg_ids = np.array([sd.add(v) for v in SEGMENTS], dtype=np.int32)
+        nationkey = rng.integers(0, 25, n, dtype=np.int32)
+        addr_pool = _make_comment_pool(rng, 512, n_words=3)
+        self.tables["customer"] = {
+            "c_custkey": np.arange(1, n + 1, dtype=np.int64),
+            "c_name": _encode_values(
+                self.dicts, "c_name",
+                [b"Customer#%09d" % k for k in range(1, n + 1)]),
+            "c_address": _encode_pool(
+                self.dicts, "c_address", addr_pool,
+                rng.integers(0, len(addr_pool), n)),
+            "c_nationkey": nationkey,
+            "c_phone": _encode_values(
+                self.dicts, "c_phone", self._phones(rng, nationkey)),
+            "c_acctbal": rng.integers(-999_99, 9999_99, n, dtype=np.int64),
+            "c_mktsegment": seg_ids[seg],
+            "c_comment": _encode_pool(
+                self.dicts, "c_comment", _make_comment_pool(rng, 1024),
+                rng.integers(0, 1024, n)),
+        }
+
+    def _gen_supplier(self, rng):
+        n = max(int(10_000 * self.sf), 1)
+        nationkey = rng.integers(0, 25, n, dtype=np.int32)
+        addr_pool = _make_comment_pool(rng, 256, n_words=3)
+        # ~1.6% of suppliers carry the q16 'Customer Complaints' chain
+        comment_pool = _make_comment_pool(rng, 512)
+        for i in range(0, len(comment_pool), 64):
+            comment_pool[i] = comment_pool[i] + b" Customer loud Complaints"
+        self.tables["supplier"] = {
+            "s_suppkey": np.arange(1, n + 1, dtype=np.int64),
+            "s_name": _encode_values(
+                self.dicts, "s_name",
+                [b"Supplier#%09d" % k for k in range(1, n + 1)]),
+            "s_address": _encode_pool(
+                self.dicts, "s_address", addr_pool,
+                rng.integers(0, len(addr_pool), n)),
+            "s_nationkey": nationkey,
+            "s_phone": _encode_values(
+                self.dicts, "s_phone", self._phones(rng, nationkey)),
+            "s_acctbal": rng.integers(-999_99, 9999_99, n, dtype=np.int64),
+            "s_comment": _encode_pool(
+                self.dicts, "s_comment", comment_pool,
+                rng.integers(0, len(comment_pool), n)),
+        }
+
+    def _gen_part_partsupp(self, rng):
+        n = max(int(200_000 * self.sf), 1)
+        # p_name: 3 colors joined (dbgen: 5 of 92); pool bounded by combos
+        picks = rng.integers(0, len(COLORS), (n, 3))
+        names = [b" ".join((COLORS[a], COLORS[b], COLORS[c]))
+                 for a, b, c in picks]
+        mfgr = rng.integers(1, 6, n)
+        brand = mfgr * 10 + rng.integers(1, 6, n)
+        t1 = rng.integers(0, len(TYPE_SYL1), n)
+        t2 = rng.integers(0, len(TYPE_SYL2), n)
+        t3 = rng.integers(0, len(TYPE_SYL3), n)
+        types = [b" ".join((TYPE_SYL1[a], TYPE_SYL2[b], TYPE_SYL3[c]))
+                 for a, b, c in zip(t1, t2, t3)]
+        c1 = rng.integers(0, len(CONTAINER_SYL1), n)
+        c2 = rng.integers(0, len(CONTAINER_SYL2), n)
+        containers = [b" ".join((CONTAINER_SYL1[a], CONTAINER_SYL2[b]))
+                      for a, b in zip(c1, c2)]
+        self.tables["part"] = {
+            "p_partkey": np.arange(1, n + 1, dtype=np.int64),
+            "p_name": _encode_values(self.dicts, "p_name", names),
+            "p_mfgr": _encode_values(
+                self.dicts, "p_mfgr",
+                [b"Manufacturer#%d" % m for m in mfgr]),
+            "p_brand": _encode_values(
+                self.dicts, "p_brand", [b"Brand#%d" % b for b in brand]),
+            "p_type": _encode_values(self.dicts, "p_type", types),
+            "p_size": rng.integers(1, 51, n, dtype=np.int32),
+            "p_container": _encode_values(
+                self.dicts, "p_container", containers),
+            "p_retailprice": (90_000 + (np.arange(1, n + 1) % 20_001)
+                              ).astype(np.int64),
+        }
+        # partsupp: each part has 4 suppliers (dbgen), pk (partkey, suppkey)
+        n_supp = max(int(10_000 * self.sf), 1)
+        ps_partkey = np.repeat(np.arange(1, n + 1, dtype=np.int64), 4)
+        ps_suppkey = (
+            (ps_partkey + np.tile(np.arange(4, dtype=np.int64), n)
+             * max(n_supp // 4, 1)) % n_supp + 1
+        )
+        m = len(ps_partkey)
+        self.tables["partsupp"] = {
+            "ps_partkey": ps_partkey,
+            "ps_suppkey": ps_suppkey,
+            "ps_availqty": rng.integers(1, 10_000, m, dtype=np.int32),
+            "ps_supplycost": rng.integers(100, 1000_00, m, dtype=np.int64),
+        }
+
+    def _gen_nation_region(self):
+        self.tables["nation"] = {
+            "n_nationkey": np.arange(25, dtype=np.int32),
+            "n_regionkey": np.array(NATION_REGION, dtype=np.int32),
+            "n_name": _register(self.dicts, "n_name", NATIONS),
+        }
+        self.tables["region"] = {
+            "r_regionkey": np.arange(5, dtype=np.int32),
+            "r_name": _register(self.dicts, "r_name", REGIONS),
+        }
+
     def schema(self, table: str) -> dtypes.Schema:
-        return {"lineitem": LINEITEM_SCHEMA, "orders": ORDERS_SCHEMA}[table]
+        return {
+            "lineitem": LINEITEM_SCHEMA,
+            "orders": ORDERS_SCHEMA,
+            "customer": CUSTOMER_SCHEMA,
+            "supplier": SUPPLIER_SCHEMA,
+            "part": PART_SCHEMA,
+            "partsupp": PARTSUPP_SCHEMA,
+            "nation": NATION_SCHEMA,
+            "region": REGION_SCHEMA,
+        }[table]
+
+
+#: catalog primary keys (FK->PK lookup-join planning; schemeshard analog)
+PRIMARY_KEYS = {
+    "lineitem": ("l_orderkey", "l_linenumber"),
+    "orders": ("o_orderkey",),
+    "customer": ("c_custkey",),
+    "supplier": ("s_suppkey",),
+    "part": ("p_partkey",),
+    "partsupp": ("ps_partkey", "ps_suppkey"),
+    "nation": ("n_nationkey",),
+    "region": ("r_regionkey",),
+}
 
 
 # ---------------- queries as SSA programs ----------------
@@ -288,3 +531,109 @@ def q6_program() -> Program:
             AggSpec(Agg.SUM, "revenue_item", "revenue"),
         )),
     ))
+
+
+# ---------------- join queries as logical plans ----------------
+
+
+def q3_plan():
+    """TPC-H Q3: shipping priority (BASELINE config 4 join shape).
+
+    customer(BUILDING) semi-> orders(< date) -> lineitem(> date) joins,
+    then group by (l_orderkey, o_orderdate, o_shippriority), top-10 by
+    revenue.
+    """
+    from ydb_tpu_torch.plan import LookupJoin, TableScan, Transform
+    from ydb_tpu_torch.ssa.program import DictPredicate
+
+    date = _days("1995-03-15")
+    customers = TableScan("customer", Program((
+        FilterStep(DictPredicate("c_mktsegment", "eq", b"BUILDING")),
+        ProjectStep(("c_custkey",)),
+    )))
+    orders = TableScan("orders", Program((
+        FilterStep(Call(Op.LT, Col("o_orderdate"), Const(date, dtypes.DATE))),
+        ProjectStep(("o_orderkey", "o_custkey", "o_orderdate",
+                     "o_shippriority")),
+    )))
+    orders_building = LookupJoin(
+        probe=orders, build=customers,
+        probe_keys=("o_custkey",), build_keys=("c_custkey",), kind="semi",
+    )
+    lineitem = TableScan("lineitem", Program((
+        FilterStep(Call(Op.GT, Col("l_shipdate"), Const(date, dtypes.DATE))),
+        ProjectStep(("l_orderkey", "l_extendedprice", "l_discount")),
+    )))
+    joined = LookupJoin(
+        probe=lineitem, build=orders_building,
+        probe_keys=("l_orderkey",), build_keys=("o_orderkey",),
+        payload=("o_orderdate", "o_shippriority"), kind="inner",
+    )
+    return Transform(joined, Program((
+        AssignStep("rev_item", Call(Op.MUL, Col("l_extendedprice"),
+                   Call(Op.SUB, decimal_lit("1", 2), Col("l_discount")))),
+        GroupByStep(
+            keys=("l_orderkey", "o_orderdate", "o_shippriority"),
+            aggs=(AggSpec(Agg.SUM, "rev_item", "revenue"),),
+        ),
+        # l_orderkey tie-break pins the order beyond the spec's
+        # (revenue desc, date) for deterministic comparisons
+        SortStep(keys=("revenue", "o_orderdate", "l_orderkey"),
+                 descending=(True, False, False), limit=10),
+    )))
+
+
+def q5_plan():
+    """TPC-H Q5: local supplier volume (6-table join chain)."""
+    from ydb_tpu_torch.plan import LookupJoin, TableScan, Transform
+    from ydb_tpu_torch.ssa.program import DictPredicate
+
+    d0, d1 = _days("1994-01-01"), _days("1995-01-01")
+    region = TableScan("region", Program((
+        FilterStep(DictPredicate("r_name", "eq", b"ASIA")),
+        ProjectStep(("r_regionkey",)),
+    )))
+    nation = LookupJoin(
+        probe=TableScan("nation"), build=region,
+        probe_keys=("n_regionkey",), build_keys=("r_regionkey",),
+        kind="semi",
+    )
+    orders = TableScan("orders", Program((
+        FilterStep(Call(Op.GE, Col("o_orderdate"), Const(d0, dtypes.DATE))),
+        FilterStep(Call(Op.LT, Col("o_orderdate"), Const(d1, dtypes.DATE))),
+        ProjectStep(("o_orderkey", "o_custkey")),
+    )))
+    li = TableScan("lineitem", Program((
+        ProjectStep(("l_orderkey", "l_suppkey", "l_extendedprice",
+                     "l_discount")),
+    )))
+    li_orders = LookupJoin(
+        probe=li, build=orders,
+        probe_keys=("l_orderkey",), build_keys=("o_orderkey",),
+        payload=("o_custkey",), kind="inner",
+    )
+    li_supp = LookupJoin(
+        probe=li_orders, build=TableScan("supplier"),
+        probe_keys=("l_suppkey",), build_keys=("s_suppkey",),
+        payload=("s_nationkey",), kind="inner",
+    )
+    li_cust = LookupJoin(
+        probe=li_supp, build=TableScan("customer"),
+        probe_keys=("o_custkey",), build_keys=("c_custkey",),
+        payload=("c_nationkey",), kind="inner",
+    )
+    li_nation = LookupJoin(
+        probe=li_cust, build=nation,
+        probe_keys=("s_nationkey",), build_keys=("n_nationkey",),
+        payload=("n_name",), kind="inner",
+    )
+    return Transform(li_nation, Program((
+        # customer and supplier must share the nation
+        FilterStep(Call(Op.EQ, Call(Op.CAST_INT64, Col("c_nationkey")),
+                        Call(Op.CAST_INT64, Col("s_nationkey")))),
+        AssignStep("rev_item", Call(Op.MUL, Col("l_extendedprice"),
+                   Call(Op.SUB, decimal_lit("1", 2), Col("l_discount")))),
+        GroupByStep(keys=("n_name",),
+                    aggs=(AggSpec(Agg.SUM, "rev_item", "revenue"),)),
+        SortStep(keys=("revenue",), descending=(True,)),
+    )))
