@@ -41,7 +41,26 @@ Phases, in order; any failure exits non-zero before the final line:
    spread of three warm runs, result rows, peak device memory, the
    launches of each CUDA kernel, and for one more warm run the device's
    busy share (``torch.profiler``) and the seconds of each layer of the
-   plan walk (scans, joins, transforms; synced host clock).
+   plan walk (scans, joins, transforms; synced host clock). This phase
+   runs the walk (``execute_plan(..., use_dq=False)``).
+6. DQ path: the 22 queries through the default routing, which sends the
+   20 join-bearing plans through the DQ stage graph (``dq/compute.py``:
+   credit-flow compute actors, hash-partitioned host channels, spilling).
+   First at sf 0.01, seed 11 against the goldens, once at the reference's
+   2 tasks and 1<<20-row blocks and once at 3 tasks and 1<<12-row blocks;
+   then over phase 5's tables on the card, one ``{"sql_dq": ...}`` line
+   per query: the executor that answered, stages and tasks, plan, first
+   and warm seconds (eager torch: a first run compiles nothing), peak
+   device memory above the tables, bytes through the channel payloads
+   each way, rows hashed, parked payloads, ``spill_count``, the kernels'
+   launches, the busy share and seconds per DQ layer of one more warm
+   run (``dq_instruments``). Every query's first run is made, counted
+   and checked: its result must equal phase 5's walk result, and Q3, Q5,
+   Q13 and Q18 also equal numpy. The warm runs (three, one where the
+   first run took over ``DQ_SLOW_FIRST_S``) and the profiled run are
+   made while the script stays under ``DQ_EXTRAS_BUDGET_S``, so the run
+   ends inside its time limit; ``--dq-warm N`` makes them for every
+   query.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -77,8 +96,17 @@ REPLACES = {
 }
 
 
+STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the script began."""
+    print(f"[{time.perf_counter() - STARTED:7.1f} s] {msg}", flush=True)
+
+
+def emit(obj: dict) -> None:
+    """A JSON line of results (no stamp, so it parses as it stands)."""
+    print(json.dumps(obj), flush=True)
 
 
 def smi_line() -> str:
@@ -207,7 +235,7 @@ def sweep(ck, baseline, url_ids, ng, dev) -> list:
             row["bound_share"] = row["bound_ms"] / row["cold_ms"]
             del sets
             out.append(row)
-            log(json.dumps({"sweep": row}))
+            emit({"sweep": row})
     return out
 
 
@@ -494,15 +522,16 @@ def sql_database(tp, dev):
     return db, catalog
 
 
-def plan_sql(sql, db, catalog):
+def plan_sql(sql, db, catalog, use_dq=None):
     """Plan one statement; uncorrelated scalar subqueries run on the
-    device while it plans (the reference's precompute phase)."""
+    device while it plans (the reference's precompute phase), routed as
+    ``use_dq`` says (None: the default routing, DQ for joins)."""
     from ydb_tpu_torch.plan import execute_plan, to_host
     from ydb_tpu_torch.sql.parser import parse
     from ydb_tpu_torch.sql.planner import plan_select_full
 
     def scalar_exec(plan, t):
-        out = to_host(execute_plan(plan, db))
+        out = to_host(execute_plan(plan, db, use_dq=use_dq))
         v, ok = out.cols[out.schema.names[0]]
         assert len(v) == 1, f"scalar subquery returned {len(v)} rows"
         return v[0].item(), bool(ok[0])
@@ -510,10 +539,10 @@ def plan_sql(sql, db, catalog):
     return plan_select_full(parse(sql), catalog, scalar_exec)
 
 
-def run_sql(pq, db):
+def run_sql(pq, db, use_dq=None):
     from ydb_tpu_torch.plan import execute_plan, to_host
 
-    res = to_host(execute_plan(pq.plan, db))
+    res = to_host(execute_plan(pq.plan, db, use_dq=use_dq))
     if db.device is not None and torch.device(db.device).type == "cuda":
         torch.cuda.synchronize()
     res.dict_aliases = pq.dict_aliases
@@ -546,12 +575,15 @@ def golden_digest(out, dicts, fields=None) -> str:
     return h.hexdigest()
 
 
-def golden_check(dev) -> list:
+def golden_check(dev, use_dq=False, stats=None) -> list:
     """All 22 queries at the pinned (sf, seed) on the card against
-    tests/golden_tpch.json. A digest that differs only through a float
-    column is held against the port's CPU run of the same query (floats
-    rtol 1e-12, everything else exact) and reported; any other
-    difference fails. Returns those float-column exceptions."""
+    tests/golden_tpch.json, through the walk (``use_dq=False``) or the
+    default routing (``use_dq=None``: the DQ stage graph for every
+    join-bearing plan, which ``stats`` then checks and counts; see
+    ``dq_instruments``). A digest that differs only through a float
+    column is held against the port's CPU run of the same query by the
+    same route (floats rtol 1e-12, everything else exact) and reported;
+    any other difference fails. Returns those float-column exceptions."""
     from ydb_tpu_torch.workload import tpch
     from ydb_tpu_torch.workload.queries import TPCH
 
@@ -561,13 +593,23 @@ def golden_check(dev) -> list:
     cpu = None
     exceptions = []
     for name, want in golden["queries"].items():
-        res = run_sql(plan_sql(TPCH[name], db, catalog), db)
+        pq = plan_sql(TPCH[name], db, catalog, use_dq)
+        if stats is None:
+            res = run_sql(pq, db, use_dq)
+        else:
+            with dq_instruments() as st:
+                res = run_sql(pq, db, use_dq)
+            assert st["executor"] == ("walk" if name in ("q1", "q6")
+                                      else "dq"), (name, st["executor"])
+            for k in ("hash_splits", "parked", "spill_count",
+                      "multi_block_channels"):
+                stats[k] = stats.get(k, 0) + st[k]
         assert res.num_rows == want["rows"], (name, res.num_rows, want)
         if golden_digest(res, tp.dicts) == want["sha"]:
             continue
         if cpu is None:
             cpu = sql_database(tp, "cpu")
-        ref = run_sql(plan_sql(TPCH[name], *cpu), cpu[0])
+        ref = run_sql(plan_sql(TPCH[name], *cpu, use_dq), cpu[0], use_dq)
         assert golden_digest(ref, tp.dicts) == want["sha"], name
         floats = [f.name for f in res.schema.fields if f.type.is_floating]
         others = [f.name for f in res.schema.fields
@@ -586,9 +628,10 @@ def golden_check(dev) -> list:
         exceptions.append({"query": name, "float_columns": differ})
         log(f"golden {name}: digest differs on the card only through float "
             f"column(s) {differ}; equal to the CPU run at rtol 1e-12")
-    log(f"SQL golden check: {len(golden['queries'])} queries at sf "
-        f"{golden['sf']}, seed {golden['seed']} match tests/golden_tpch.json"
-        f" on the card ({len(exceptions)} float-column exceptions)")
+    log(f"SQL golden check ({'walk' if use_dq is False else 'default routing'}"
+        f"): {len(golden['queries'])} queries at sf {golden['sf']}, seed "
+        f"{golden['seed']} match tests/golden_tpch.json on the card "
+        f"({len(exceptions)} float-column exceptions)")
     return exceptions
 
 
@@ -727,35 +770,44 @@ def layer_timers(cache):
     return totals, restore
 
 
-def profile_sql(pq, db) -> dict:
-    """Where one warm run of a planned query spends its time: one run
-    under ``torch.profiler`` (device busy time as the union of device
-    intervals, its share of the wall time, device operations, the top
-    kernels), then one run with the walk's layers timed."""
+def busy_share(run) -> dict:
+    """One call of ``run`` under ``torch.profiler``: device busy time as
+    the union of device intervals, its share of the wall time, device
+    operations, the top kernels."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     from profile_torch_scan import kernel_stats
 
-    prof, wall = profiled(lambda: run_sql(pq, db))
+    prof, wall = profiled(run)
     busy_us, ops, top = kernel_stats(prof, 3)
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall, "device_ops": ops,
+            "top_kernels": top}
+
+
+def profile_sql(pq, db) -> dict:
+    """Where one warm walk of a planned query spends its time: one run
+    under ``torch.profiler`` (``busy_share``), then one run with the
+    walk's layers timed."""
+    busy = busy_share(lambda: run_sql(pq, db, False))
     totals, restore = layer_timers(db._compile_cache)
     try:
         t0 = time.perf_counter()
-        run_sql(pq, db)
+        run_sql(pq, db, False)
         synced = time.perf_counter() - t0
     finally:
         restore()
-    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall, "device_ops": ops,
-            "top_kernels": top, "synced_wall_s": synced,
+    return {**busy, "synced_wall_s": synced,
             "layers_s": dict(sorted(totals.items()))}
 
 
-def sql_phase(tp, dev, ck) -> list:
-    """The 22 queries at the scale of ``tp`` on the card: per query the
-    plan time, the first run, three warm runs, result rows, peak device
-    memory (reset per query), the CUDA kernels' launches (counted from
-    zero for the query's first run and read just after it), and where a
-    warm run's time goes (``profile_sql``)."""
+def sql_phase(tp, dev, ck):
+    """The 22 queries at the scale of ``tp`` on the card through the
+    walk: per query the plan time, the first run, three warm runs, result
+    rows, peak device memory (reset per query), the CUDA kernels'
+    launches (counted from zero for the query's first run and read just
+    after it), and where a warm run's time goes (``profile_sql``).
+    Returns the rows, the database and catalog, and each query's result
+    (the DQ phase holds its results against them)."""
     from ydb_tpu_torch.workload.queries import TPCH
 
     t = tp.tables
@@ -777,23 +829,24 @@ def sql_phase(tp, dev, ck) -> list:
         "q13": lambda r: check_sql_q13(r, t, tp.dicts),
         "q18": lambda r: check_sql_q18(r, t, tp.dicts),
     }
-    rows = []
+    rows, results = [], {}
     for name in sorted(TPCH, key=lambda q: int(q[1:])):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        pq = plan_sql(TPCH[name], db, catalog)
+        pq = plan_sql(TPCH[name], db, catalog, False)
         plan_s = time.perf_counter() - t0
         ck.reset_launches()
         t0 = time.perf_counter()
-        res = run_sql(pq, db)
+        res = run_sql(pq, db, False)
         first_s = time.perf_counter() - t0
         launches = dict(ck.LAUNCHES)
+        results[name] = res
         warm = []
         for _ in range(3):
             t0 = time.perf_counter()
-            again = run_sql(pq, db)
+            again = run_sql(pq, db, False)
             warm.append(time.perf_counter() - t0)
         assert again.num_rows == res.num_rows, name
         peak = torch.cuda.max_memory_allocated(dev)
@@ -809,7 +862,289 @@ def sql_phase(tp, dev, ck) -> list:
                "query_peak_bytes": peak - base, "launches": launches,
                "numpy_checked": checked, **prof}
         rows.append(row)
-        log(json.dumps({"sql": row}))
+        emit({"sql": row})
+    return rows, db, catalog, checks, results
+
+
+# ---------------- phase 6: the DQ stage graph ----------------
+
+
+#: a DQ query whose first run took longer than this gets one warm run,
+#: not three, unless ``--dq-warm`` says otherwise
+DQ_SLOW_FIRST_S = 2.0
+
+#: the DQ phase's warm and profiled runs (beyond each query's first,
+#: checked run) are made only while the script's clock, with them, stays
+#: under this: the whole run then ends well inside its time limit
+DQ_EXTRAS_BUDGET_S = 650.0
+
+#: the DQ layers that ``dq_instruments(timed=True)`` times, by the port
+#: function that does each layer's work (module or class, attribute)
+DQ_LAYERS = (
+    ("source_blocks", "ComputeActor", "_pump_source"),
+    ("block_program", "_CompiledStage", "run_block"),
+    ("payload_fetch", None, "block_to_payload"),
+    ("hash", None, "_hash_rows"),
+    ("split", None, "_split_by_hash"),
+    ("payload_to_block", None, "payload_to_block"),
+    ("payload_to_block", None, "_assemble"),
+    ("join", "_CompiledStage", "run_join"),
+    ("finalize", "_CompiledStage", "run_final"),
+    ("spill", "Spiller", "put"),
+    ("spill", "Spiller", "get"),
+)
+
+
+class dq_instruments:
+    """Wrap the port's DQ functions for one statement, from outside the
+    package: which executor answered (``_execute_plan_dq`` returned a
+    block or fell back), the graph's stages and tasks, bytes fetched to
+    the host (``block_to_payload``) and sent back (``payload_to_block``,
+    ``_assemble``), rows hashed, channel payloads parked behind the
+    credit window, channels that carried more than one block, and the
+    spillers' ``spill_count``. With ``timed``, each layer of
+    ``DQ_LAYERS`` is also timed on the host clock with a
+    ``torch.cuda.synchronize()`` on both sides of every call; nested
+    calls are charged to the inner layer only, so the layers and
+    ``other`` add up to the statement's wall time."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+
+    def __enter__(self) -> dict:
+        from ydb_tpu_torch.dq import compute, spilling
+        from ydb_tpu_torch.plan import executor
+
+        st = self.stats = {
+            "executor": "walk", "stages": 0, "tasks": 0,
+            "bytes_to_host": 0, "bytes_to_device": 0, "rows_hashed": 0,
+            "hash_splits": 0, "parked": 0, "spill_count": 0,
+            "multi_block_channels": 0, "layers_s": {}}
+        self.handles = []
+        owners = {None: compute, "ComputeActor": compute.ComputeActor,
+                  "_CompiledStage": compute._CompiledStage,
+                  "Spiller": spilling.Spiller}
+        self.saved = []
+        stack: list = []
+        timed = self.timed
+
+        def patch(owner, name, wrapper):
+            real = getattr(owner, name)
+            self.saved.append((owner, name, real))
+            setattr(owner, name, wrapper(real))
+
+        def layer(name, count=None):
+            def wrapper(real):
+                def call(*a, **k):
+                    if timed:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        stack.append(0.0)
+                    try:
+                        out = real(*a, **k)
+                    finally:
+                        if timed:
+                            torch.cuda.synchronize()
+                            took = time.perf_counter() - t0
+                            inner = stack.pop()
+                            ls = st["layers_s"]
+                            ls[name] = ls.get(name, 0.0) + took - inner
+                            if stack:
+                                stack[-1] += took
+                    if count is not None:
+                        count(a, out)
+                    return out
+                return call
+            return wrapper
+
+        def nbytes(payloads):
+            return sum(v.nbytes for p in payloads for v in p.values())
+
+        def add(key, n):
+            st[key] += n
+
+        counters = {
+            "block_to_payload": lambda a, out: add("bytes_to_host",
+                                                   nbytes([out])),
+            "payload_to_block": lambda a, out: add("bytes_to_device",
+                                                   nbytes([a[0]])),
+            "_assemble": lambda a, out: add("bytes_to_device",
+                                            nbytes(a[0])),
+            "_hash_rows": lambda a, out: add("rows_hashed", len(out)),
+            "_split_by_hash": lambda a, out: add("hash_splits",
+                                                 int(a[2] > 1)),
+        }
+        for lname, owner, name in DQ_LAYERS:
+            patch(owners[owner], name, layer(lname, counters.get(name)))
+
+        def send(real):
+            def call(actor, ch, payload):
+                if actor._unacked[ch] >= actor.window:
+                    st["parked"] += 1
+                return real(actor, ch, payload)
+            return call
+
+        def build(real):
+            def call(*a, **k):
+                handle = real(*a, **k)
+                self.handles.append(handle)
+                return handle
+            return call
+
+        def answered(real):
+            def call(plan, db):
+                out = real(plan, db)
+                if out is not None:
+                    st["executor"] = "dq"
+                return out
+            return call
+
+        patch(compute.ComputeActor, "_send_channel", send)
+        patch(compute, "build_stage_graph", build)
+        patch(executor, "_execute_plan_dq", answered)
+        self.t0 = time.perf_counter()
+        return st
+
+    def __exit__(self, *exc):
+        wall = time.perf_counter() - self.t0
+        for owner, name, real in reversed(self.saved):
+            setattr(owner, name, real)
+        st = self.stats
+        for h in self.handles:
+            st["stages"] += len({t.stage for t in h.tasks})
+            st["tasks"] += len(h.tasks)
+            for a in h.actors:
+                st["spill_count"] += a.spiller.spill_count
+                # every channel's last seq is its finish message
+                st["multi_block_channels"] += sum(
+                    n > 2 for n in a._next_seq.values())
+        if self.timed:
+            st["layers_s"] = dict(sorted(st["layers_s"].items()))
+            st["wall_s"] = wall
+            st["layers_s"]["other"] = wall - sum(st["layers_s"].values())
+        return False
+
+
+def dq_golden_check(dev) -> dict:
+    """The 22 queries at sf 0.01, seed 11 through the default routing
+    against tests/golden_tpch.json: once with the reference's DQ defaults
+    (2 tasks, 1<<20-row blocks), once with 3 tasks and 1<<12-row blocks
+    (hash splits, parked channel payloads and multi-block channels then
+    happen on the card, and are counted)."""
+    from ydb_tpu_torch.plan import executor
+
+    out = {}
+    saved = executor.DQ_TASKS, executor.DQ_BLOCK_ROWS
+    for tasks, rows in ((2, 1 << 20), (3, 1 << 12)):
+        executor.DQ_TASKS, executor.DQ_BLOCK_ROWS = tasks, rows
+        stats: dict = {}
+        try:
+            exc = golden_check(dev, use_dq=None, stats=stats)
+        finally:
+            executor.DQ_TASKS, executor.DQ_BLOCK_ROWS = saved
+        key = f"tasks{tasks}_rows{rows}"
+        out[key] = {"float_exceptions": exc, **stats}
+        log(f"DQ golden check, {tasks} tasks, {rows}-row blocks: 20 "
+            f"join-bearing queries answered by the DQ stage graph, q1/q6 "
+            f"by the walk; {json.dumps(stats)}")
+    return out
+
+
+def same_result(got, want, name) -> None:
+    """``got`` equals ``want``: the same columns and rows in the same
+    order, validity, integers and dictionary ids exact, float64 within
+    rtol 1e-12 (partial sums merge in another order)."""
+    assert list(got.schema.names) == list(want.schema.names), name
+    assert got.num_rows == want.num_rows, (name, got.num_rows, want.num_rows)
+    for col in want.schema.names:
+        (gv, go), (wv, wo) = got.cols[col], want.cols[col]
+        assert np.array_equal(go, wo), (name, col, "validity")
+        assert gv.dtype == wv.dtype, (name, col, gv.dtype, wv.dtype)
+        if np.issubdtype(wv.dtype, np.floating):
+            np.testing.assert_allclose(gv[wo], wv[wo], rtol=1e-12,
+                                       err_msg=f"{name} {col}")
+        else:
+            assert np.array_equal(gv[wo], wv[wo]), (name, col)
+
+
+def dq_phase(tp, db, catalog, dev, ck, walk, checks, n_warm=None) -> list:
+    """The 22 queries at the scale of ``tp`` through the default routing
+    (the DQ stage graph for the 20 join-bearing ones, at the reference's
+    2 tasks and 1<<20-row blocks), over the tables ``db`` holds on the
+    card. Per query, always: which executor answered, stages and tasks,
+    plan seconds, the first run (CUDA kernel launches counted from zero
+    for it and read just after; channel bytes, rows hashed, parked
+    payloads and spills counted in it), peak device memory above the
+    resident tables in it, and the checks: the result must equal the
+    walk's (``walk``) and pass the numpy check of its query in
+    ``checks``; a join-bearing query the walk answered fails the run.
+    Then, while the script's clock stays under ``DQ_EXTRAS_BUDGET_S``:
+    warm runs (three, or one where the first run took over
+    ``DQ_SLOW_FIRST_S``) and one more warm run under ``torch.profiler``
+    with the DQ layers timed (``dq_instruments``: the device busy share
+    of its wall time, and the seconds per layer); their fields are null
+    for a query past the budget. ``n_warm`` forces that many warm runs
+    and the profiled run for every query, budget or not."""
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    rows = []
+    for name in sorted(TPCH, key=lambda q: int(q[1:])):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pq = plan_sql(TPCH[name], db, catalog)
+        plan_s = time.perf_counter() - t0
+        ck.reset_launches()
+        with dq_instruments() as counts:
+            t0 = time.perf_counter()
+            res = run_sql(pq, db)
+            first_s = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert counts["executor"] == ("walk" if name in ("q1", "q6")
+                                      else "dq"), (name, counts)
+        same_result(res, walk[name], name)
+        if name in checks:
+            checks[name](res)
+        row = {"query": name, "sf": tp.sf, "executor": counts["executor"],
+               "stages": counts["stages"], "tasks": counts["tasks"],
+               "rows": res.num_rows, "plan_s": plan_s, "first_s": first_s,
+               "warm_median_s": None, "warm_s": [], "warm_spread": None,
+               "peak_device_bytes": peak, "resident_bytes": base,
+               "query_peak_bytes": peak - base,
+               "bytes_to_host": counts["bytes_to_host"],
+               "bytes_to_device": counts["bytes_to_device"],
+               "rows_hashed": counts["rows_hashed"],
+               "hash_splits": counts["hash_splits"],
+               "parked": counts["parked"],
+               "spill_count": counts["spill_count"],
+               "launches": launches, "equals_walk": True,
+               "numpy_checked": name in checks, "device_busy_share": None,
+               "layers_s": None}
+        runs = n_warm or (1 if first_s > DQ_SLOW_FIRST_S else 3)
+        if n_warm or (time.perf_counter() - STARTED + (runs + 1) * first_s
+                      <= DQ_EXTRAS_BUDGET_S):
+            warm = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                again = run_sql(pq, db)
+                warm.append(time.perf_counter() - t0)
+                assert again.num_rows == res.num_rows, name
+            layered: dict = {}
+
+            def timed_run():
+                with dq_instruments(timed=True) as st:
+                    run_sql(pq, db)
+                layered.update(st)
+
+            row.update(warm_median_s=statistics.median(warm), warm_s=warm,
+                       warm_spread=max(warm) / min(warm),
+                       **busy_share(timed_run),
+                       synced_wall_s=layered["wall_s"],
+                       layers_s=layered["layers_s"])
+        rows.append(row)
+        emit({"sql_dq": row})
     return rows
 
 
@@ -828,6 +1163,11 @@ def main(argv=None) -> int:
                     help="ClickBench hits rows (published: 99997497)")
     ap.add_argument("--json-out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--dq-warm", type=int, default=None,
+                    help="warm runs per query in the DQ phase, each query "
+                    "also profiled, whatever the time (default: 3, or 1 "
+                    f"where the first run took over {DQ_SLOW_FIRST_S} s, "
+                    f"while the run stays under {DQ_EXTRAS_BUDGET_S} s)")
     ap.add_argument("--baseline-source", default=None,
                     help="an earlier grouped_sum.cu with the zero-filled-"
                     "output interface, timed beside the kernels in the "
@@ -1028,26 +1368,52 @@ def main(argv=None) -> int:
     exceptions = golden_check(dev)
     sql_tp = (tp if args.sql_sf in (None, args.sf)
               else tpch.TpchData(sf=args.sql_sf, seed=42))
-    sql_rows = sql_phase(sql_tp, dev, ck)
+    sql_rows, db, catalog, checks, walk = sql_phase(sql_tp, dev, ck)
     sql_launches = {k: sum(r["launches"][k] for r in sql_rows)
                     for k in ck.LAUNCHES}
-    log(f"SQL path: 22 queries at sf {sql_tp.sf} on the card; Q1, Q3, Q5, "
-        f"Q6, Q13, Q18 equal numpy; CUDA kernel launches over all first "
-        f"runs {sql_launches}")
+    log(f"SQL path (walk): 22 queries at sf {sql_tp.sf} on the card; Q1, "
+        f"Q3, Q5, Q6, Q13, Q18 equal numpy; CUDA kernel launches over all "
+        f"first runs {sql_launches}")
+
+    # ---- phase 6: the DQ stage graph ----
+    dq_golden = dq_golden_check(dev)
+    dq_rows = dq_phase(sql_tp, db, catalog, dev, ck, walk,
+                       {k: checks[k] for k in ("q3", "q5", "q13", "q18")},
+                       args.dq_warm)
+    walk_median = {r["query"]: r["warm_median_s"] for r in sql_rows}
+    timed = [r for r in dq_rows if r["warm_median_s"] is not None]
+    for r in timed:
+        r["walk_warm_median_s"] = walk_median[r["query"]]
+        r["dq_over_walk"] = r["warm_median_s"] / walk_median[r["query"]]
+    dq_launches = {k: sum(r["launches"][k] for r in dq_rows)
+                   for k in ck.LAUNCHES}
+    log(f"SQL path (DQ): 22 queries at sf {sql_tp.sf} on the card, 20 "
+        f"through the DQ stage graph; every result equals the walk's; Q3, "
+        f"Q5, Q13, Q18 equal numpy; CUDA kernel launches over all first "
+        f"runs {dq_launches}; first runs summed "
+        f"{sum(r['first_s'] for r in dq_rows):.4f} s; warm and profiled "
+        f"runs made for {len(timed)} queries (DQ_EXTRAS_BUDGET_S), their "
+        f"warm medians DQ / walk summed "
+        f"{sum(r['warm_median_s'] for r in timed):.4f} / "
+        f"{sum(walk_median[r['query']] for r in timed):.4f} s")
+    del db, walk
     for row in kernel_rows:
         row["sql_launches"] = sql_launches[row["name"]]
+        row["dq_launches"] = dq_launches[row["name"]]
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
                   peak_device_bytes=peak_bytes,
                   sf=args.sf, lineitem_rows=n_li, hits_rows=args.hits_rows,
                   sql=sql_rows, sql_sf=sql_tp.sf,
-                  sql_golden_float_exceptions=exceptions)
+                  sql_golden_float_exceptions=exceptions,
+                  sql_dq=dq_rows, sql_dq_golden=dq_golden)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)
         with open(args.json_out, "w") as f:
             json.dump(report, f, indent=1)
+    log("chip_smoke: all phases passed")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

@@ -214,6 +214,16 @@ SQL_PATH_MODULES = (
     "ydb_tpu_torch.plan.nodes", "ydb_tpu_torch.plan.executor",
     "ydb_tpu_torch.ssa.join", "ydb_tpu_torch.workload.queries",
 )
+#: the DQ path's modules, likewise
+DQ_PATH_MODULES = (
+    "ydb_tpu_torch.runtime", "ydb_tpu_torch.runtime.actors",
+    "ydb_tpu_torch.runtime.test_runtime", "ydb_tpu_torch.runtime.interconnect",
+    "ydb_tpu_torch.chaos", "ydb_tpu_torch.chaos.deadline",
+    "ydb_tpu_torch.engine.blobs", "ydb_tpu_torch.dq", "ydb_tpu_torch.dq.graph",
+    "ydb_tpu_torch.dq.spilling", "ydb_tpu_torch.dq.checkpoint",
+    "ydb_tpu_torch.dq.compute", "ydb_tpu_torch.native", "ydb_tpu_torch.kqp",
+    "ydb_tpu_torch.kqp.dq_lower",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -235,8 +245,9 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         missing = sorted(set(%r) - set(names))
         assert not missing, missing
         print(len(names))
-    """ % (SQL_PATH_MODULES,))
+    """ % (SQL_PATH_MODULES + DQ_PATH_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15 + len(SQL_PATH_MODULES)
+    assert int(out.stdout.split()[-1]) >= (15 + len(SQL_PATH_MODULES)
+                                           + len(DQ_PATH_MODULES))

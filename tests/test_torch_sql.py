@@ -1,5 +1,7 @@
-"""The SQL path through the port: parse -> plan -> ``execute_plan`` ->
-``to_host`` in ``ydb_tpu_torch``, on the CPU.
+"""The SQL path through the port's plan walk: parse -> plan ->
+``execute_plan(..., use_dq=False)`` -> ``to_host`` in ``ydb_tpu_torch``,
+on the CPU (the DQ stage graph, the default for join-bearing plans, has
+its own tests in ``tests/test_torch_sql_dq.py``).
 
 * All 22 TPC-H queries at sf 0.01, seed 11 against the pinned rows and
   sha256 digests of ``tests/golden_tpch.json`` (the digest as
@@ -89,17 +91,19 @@ def ref():
     return data, db, catalog
 
 
-def run_port(sql, port):
+def run_port(sql, port, use_dq=False):
+    """``sql`` through the port; the walk unless ``use_dq`` is None (the
+    default routing) or True."""
     _, db, catalog = port
 
     def scalar_exec(plan, t):
-        out = to_host(execute_plan(plan, db))
+        out = to_host(execute_plan(plan, db, use_dq=use_dq))
         v, ok = out.cols[out.schema.names[0]]
         assert len(v) == 1, f"scalar subquery returned {len(v)} rows"
         return v[0].item(), bool(ok[0])
 
     pq = plan_select_full(parse(sql), catalog, scalar_exec)
-    res = to_host(execute_plan(pq.plan, db))
+    res = to_host(execute_plan(pq.plan, db, use_dq=use_dq))
     res.dict_aliases = pq.dict_aliases
     return res
 
@@ -221,7 +225,8 @@ def test_tables_held_as_tensors_match(name, port, monkeypatch):
 @pytest.mark.parametrize("name", ["q3", "q5"])
 def test_hand_built_join_plan_matches_reference_walk(name, port, ref):
     """The workload module's hand-built join plans (no SQL)."""
-    got = to_host(execute_plan(getattr(tpch, f"{name}_plan")(), port[1]))
+    got = to_host(execute_plan(getattr(tpch, f"{name}_plan")(), port[1],
+                               use_dq=False))
     want = rto_host(rexecute(getattr(rtpch, f"{name}_plan")(), ref[1],
                              use_dq=False))
     assert_tables_equal(got, want, name)
@@ -261,9 +266,11 @@ def test_window_through_sql_matches_reference_walk(sql, port, ref):
 
 def test_window_rank_through_sql_matches_numpy(port):
     """rank() over a join-bearing plan, against an independent numpy
-    ranking (the reference's tests/test_sql.py case)."""
+    ranking (the reference's tests/test_sql.py case), through the default
+    routing (the DQ stage graph: the window runs in the result stage's
+    final program)."""
     data = port[0]
-    out = run_port(WINDOW_SQL, port)
+    out = run_port(WINDOW_SQL, port, use_dq=None)
     li, ords = data.tables["lineitem"], data.tables["orders"]
     cutoff = tpch._days("1995-03-15")
     keep = ords["o_orderdate"][li["l_orderkey"] - 1] < cutoff
@@ -318,8 +325,10 @@ def test_rejected_window_forms(form, port):
                 " having rank() over (order by l_orderkey) < 5"), catalog)
 
 
-def test_use_dq_raises_until_ported(port):
-    _, db, catalog = port
-    plan = plan_select(parse(TPCH["q6"]), catalog)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        execute_plan(plan, db, use_dq=True)
+@pytest.mark.parametrize("name", ["q6", "q10"])
+def test_use_dq_true_matches_walk(name, port):
+    """``use_dq=True`` runs a join-bearing plan (q10) through the DQ stage
+    graph and a join-free one (q6) through the walk; both give the walk's
+    result."""
+    assert_tables_equal(run_port(TPCH[name], port, use_dq=True),
+                        run_port(TPCH[name], port), name)

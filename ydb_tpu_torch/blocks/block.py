@@ -73,7 +73,8 @@ class TableBlock:
         """Build a block from host numpy arrays (already physically
         encoded) on ``device`` (CUDA unless the caller names another).
         An array may also be a tensor (a device-resident source's slice):
-        it moves to ``device`` as it is.
+        it moves to ``device``, made contiguous (a strided slice of a DQ
+        partition is copied once, here).
 
         Only a short tail is ever padded. A capacity-aligned array or
         tensor already on ``device`` is shared with the block, not copied,
@@ -97,14 +98,8 @@ class TableBlock:
             a = np.ascontiguousarray(arrays[name], dtype=f.type.physical)
             v = (np.ones(n, dtype=np.bool_) if v is None
                  else np.ascontiguousarray(v, dtype=np.bool_))
-            if cap != n:
-                # tail-only padding; padding validity stays False so it
-                # can never leak live rows
-                a = np.concatenate([a, np.zeros(cap - n, dtype=a.dtype)])
-                v = np.concatenate([v, np.zeros(cap - n, dtype=np.bool_)])
-            cols[name] = Column(
-                torch.from_numpy(a).to(device=dev, dtype=tdt),
-                torch.from_numpy(v).to(device=dev))
+            cols[name] = Column(_padded(a, cap, dev, tdt),
+                                _padded(v, cap, dev, torch.bool))
         length = torch.tensor(n, dtype=torch.int32, device=dev)
         return TableBlock(cols, length, schema)
 
@@ -145,20 +140,72 @@ class TableBlock:
     def host_columns(
         self, validity: bool = True
     ) -> "tuple[dict[str, np.ndarray], dict[str, np.ndarray]]":
-        """(data, validity) of the live rows as numpy arrays."""
+        """(data, validity) of the live rows as numpy arrays: one batched
+        device fetch for all of them."""
         n = int(self.length)
-        data = {k: c.data[:n].cpu().numpy() for k, c in self.columns.items()}
-        valid = ({k: c.validity[:n].cpu().numpy()
-                  for k, c in self.columns.items()} if validity else {})
+        names = list(self.columns)
+        parts = [self.columns[k].data[:n] for k in names]
+        if validity:
+            parts += [self.columns[k].validity[:n] for k in names]
+        got = _fetch(parts)
+        data = dict(zip(names, got[:len(names)]))
+        valid = dict(zip(names, got[len(names):]))
         return data, valid
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        """Live rows only, as physical numpy arrays (nulls not decoded)."""
+        return self.host_columns(validity=False)[0]
+
+    def validity_numpy(self) -> dict[str, np.ndarray]:
+        n = int(self.length)
+        names = list(self.columns)
+        return dict(zip(names, _fetch(
+            [self.columns[k].validity[:n] for k in names])))
+
+
+def _fetch(tensors: list) -> list:
+    """Host numpy copies of ``tensors``. On the CPU they are views; on a
+    device every tensor's bytes are packed into one device buffer (widest
+    items first, so each host view stays aligned) and read back in one
+    copy: one wait for the device instead of one per tensor."""
+    if not tensors or tensors[0].device.type == "cpu":
+        return [t.cpu().numpy() for t in tensors]
+    order = sorted(range(len(tensors)),
+                   key=lambda i: -tensors[i].element_size())
+    packed = torch.cat([tensors[i].contiguous().view(torch.uint8)
+                        for i in order]).cpu().numpy()
+    out = [None] * len(tensors)
+    off = 0
+    for i in order:
+        t = tensors[i]
+        nbytes = t.numel() * t.element_size()
+        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out[i] = packed[off:off + nbytes].view(dt)
+        off += nbytes
+    return out
+
+
+def _padded(a: np.ndarray, cap: int, dev: torch.device,
+            tdt: torch.dtype) -> torch.Tensor:
+    """``a`` on ``dev`` with a zero tail up to ``cap`` rows (tail-only
+    padding; padding validity stays False so it can never leak live
+    rows). The tail is filled on ``dev``: the host copies nothing."""
+    t = torch.from_numpy(a)
+    if cap == len(a):
+        return t.to(device=dev, dtype=tdt)
+    out = torch.empty(cap, dtype=tdt, device=dev)
+    out[:len(a)].copy_(t)
+    out[len(a):].zero_()
+    return out
 
 
 def _tensor_column(a: torch.Tensor, v, n: int, cap: int,
                    dev: torch.device, tdt: torch.dtype) -> Column:
-    """A column from a tensor slice: tail-padded like host arrays."""
-    a = a.to(device=dev, dtype=tdt)
+    """A column from a tensor slice: contiguous, tail-padded like host
+    arrays."""
+    a = a.to(device=dev, dtype=tdt).contiguous()
     v = (torch.ones(n, dtype=torch.bool, device=dev) if v is None
-         else v.to(device=dev, dtype=torch.bool))
+         else v.to(device=dev, dtype=torch.bool).contiguous())
     if cap != n:
         a = torch.cat([a, a.new_zeros(cap - n)])
         v = torch.cat([v, v.new_zeros(cap - n)])

@@ -52,17 +52,25 @@ class ColumnSource:
     def num_rows(self) -> int:
         return len(next(iter(self.columns.values()))) if self.columns else 0
 
+    def n_blocks(self, block_rows: int = DEFAULT_BLOCK_ROWS) -> int:
+        n = self.num_rows
+        cap = min(block_rows, max(n, 1))
+        return len(range(0, max(n, 1), cap))
+
     def blocks(
         self, block_rows: int = DEFAULT_BLOCK_ROWS,
         columns: tuple[str, ...] | None = None,
         device: "str | torch.device | None" = None,
+        start_block: int = 0,
     ) -> Iterator[TableBlock]:
-        """Tile into equal-capacity blocks on ``device`` (last one padded)."""
+        """Tile into equal-capacity blocks on ``device`` (last one
+        padded). ``start_block`` seeks without materializing skipped
+        blocks (checkpoint-resume path)."""
         names = columns if columns is not None else self.schema.names
         sch = self.schema.select(names)
         n = self.num_rows
         cap = min(block_rows, max(n, 1))
-        for off in range(0, max(n, 1), cap):
+        for off in range(start_block * cap, max(n, 1), cap):
             hi = min(off + cap, n)
             arrays = {m: self.columns[m][off:hi] for m in names}
             validity = None

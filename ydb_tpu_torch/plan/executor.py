@@ -1,28 +1,36 @@
-"""Plan executor: the single-chip walk of a logical plan.
+"""Plan executor: DQ stage graph for join-bearing plans, single-chip
+walk for the rest.
 
-The counterpart of ``ydb_tpu/plan/executor.py`` with the reference's
-``use_dq=False`` and whole-plan fusion off: the plan tree is walked
+The counterpart of ``ydb_tpu/plan/executor.py`` with whole-plan fusion
+off. As in the reference, every plan containing a join lowers to the DQ
+task graph — scan stages feeding hash-partitioned channels into
+grace-bucket join stages and a final aggregate — executed by credit-flow
+compute actors (``kqp/dq_lower.py`` + ``dq/compute.py``). Join-free
+plans, plans that do not lower (a CTE-shared subtree feeding two
+consumers) and ``use_dq=False`` take the walk: the plan tree is walked
 bottom-up, table scans stream blocks through compiled SSA programs
 (``engine/scan.py``), joins run the sort-based kernels of
 ``ssa/join.py``, and transforms compile against the inferred
 intermediate schema. Everything runs on the database's device (CUDA
 unless ``Database.device`` names another).
 
-Not in the port yet, each with its ROADMAP.md queue A item: the DQ stage
-graph (item 8; ``use_dq=True`` raises), whole-plan fusion (item 9), zone
--map pruning, the block cache and table statistics (item 10), tracing
-and probes (items 12 and 14), and the mesh executor (item 13).
+Not in the port yet, each with its ROADMAP.md queue A item: whole-plan
+fusion (item 9), zone-map pruning, the block cache and the table
+statistics behind DQ join sizing (item 10), tracing and probes (items 12
+and 14), and the mesh executor (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
 from ydb_tpu_torch.analysis.verify import check_program
 from ydb_tpu_torch.blocks.block import TableBlock, concat_blocks, device_aux
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
+from ydb_tpu_torch.chaos import deadline as statement_deadline
 from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.engine.oracle import OracleTable
 from ydb_tpu_torch.engine.scan import ColumnSource, ScanExecutor
@@ -39,6 +47,14 @@ from ydb_tpu_torch.ssa.compiler import compile_program
 
 #: rows per block of a table scan (the reference's SQL scan block size)
 SCAN_BLOCK_ROWS = 1 << 22
+
+#: DQ is the default executor for join-bearing plans, as in the
+#: reference; YDB_TPU_TORCH_DQ=0 restores the walk
+DQ_ON = os.environ.get("YDB_TPU_TORCH_DQ", "1") not in ("0", "", "off")
+#: tasks per scan and join stage, and rows per source block, of a DQ
+#: graph (the reference's defaults)
+DQ_TASKS = 2
+DQ_BLOCK_ROWS = 1 << 20
 
 
 @dataclasses.dataclass
@@ -70,17 +86,94 @@ def _materialize(source: ColumnSource, columns, dev) -> TableBlock:
     return blocks[0] if len(blocks) == 1 else concat_blocks(blocks)
 
 
+def _plan_nodes(plan: PlanNode):
+    stack = [plan]
+    while stack:
+        n = stack.pop()
+        yield n
+        if isinstance(n, (LookupJoin, ExpandJoin)):
+            stack += [n.probe, n.build]
+        elif isinstance(n, Transform):
+            stack.append(n.input)
+        elif isinstance(n, Concat):
+            stack += list(n.inputs)
+
+
+def _partition_for_dq(src) -> list:
+    """A table's scan partitions for DQ task feeding: round-robin row
+    slices (``partition_source``)."""
+    if isinstance(src, ColumnSource) and src.num_rows > 0:
+        from ydb_tpu_torch.kqp.dq_lower import partition_source
+
+        return partition_source(src, DQ_TASKS)
+    return [src]
+
+
+def _execute_plan_dq(plan: PlanNode, db: Database) -> TableBlock | None:
+    """Lower to DQ stages and run on an in-process actor system, every
+    block on the database's device. Returns None when the plan does not
+    lower (the caller falls back to the walk)."""
+    from ydb_tpu_torch.dq import compute
+    from ydb_tpu_torch.kqp.dq_lower import plan_to_stages
+    from ydb_tpu_torch.runtime.actors import ActorSystem
+
+    seen: set[int] = set()
+    parts: dict[str, list] = {}
+    for node in _plan_nodes(plan):
+        if id(node) in seen:
+            # a shared subtree (CTE referenced twice) would re-lower —
+            # and re-execute — once per consumer; the walk's _memo
+            # executes it once, so fall back
+            return None
+        seen.add(id(node))
+        if isinstance(node, TableScan) and node.table not in parts:
+            src = db.sources.get(node.table)
+            if src is None:
+                return None
+            parts[node.table] = _partition_for_dq(src)
+    rt = ActorSystem(node=1)
+    try:
+        stages = plan_to_stages(plan, n_tasks=DQ_TASKS)
+        handle = compute.build_stage_graph(
+            stages, parts, rt, db.dicts, db.key_spaces,
+            block_rows=DQ_BLOCK_ROWS, compile_cache=db._compile_cache,
+            device=db.device)
+    except (ValueError, NotImplementedError):
+        # plan shapes that do not lower (e.g. a join-rooted plan with no
+        # result Transform) keep working through the walk
+        return None
+    try:
+        handle.start()
+        rt.run()
+        err = handle.collector.error
+        if err is not None and "deadline" in err:
+            # the graph aborted on statement-deadline expiry: surface
+            # the typed cancellation, not a generic incompletion
+            raise statement_deadline.StatementCancelled(err)
+        if not handle.collector.done:
+            raise RuntimeError("DQ stage graph did not complete")
+        return handle.collector.result_block()
+    finally:
+        # a cancelled/aborted graph still holds spilled blobs for any
+        # parked or accumulated block ids; drop them with the graph
+        handle.close()
+
+
 def execute_plan(plan: PlanNode, db: Database,
                  _memo: dict | None = None,
                  use_dq: bool | None = None) -> TableBlock:
-    """Execute a logical plan by the bottom-up walk. ``_memo`` dedupes
-    shared subtrees (a CTE referenced from several places executes once
-    per statement)."""
-    if use_dq:
-        raise NotImplementedError(
-            "the DQ stage graph is not ported yet (ROADMAP.md queue A"
-            " item 8); run with use_dq=False")
+    """Execute a logical plan: join-bearing plans route through the DQ
+    stage graph (``use_dq=None`` follows ``DQ_ON``, on by default);
+    join-free plans, shapes that do not lower and ``use_dq=False`` use
+    the bottom-up walk. ``_memo`` dedupes shared subtrees (a CTE
+    referenced from several places executes once per statement)."""
     if _memo is None:
+        if (use_dq if use_dq is not None else DQ_ON) and any(
+                isinstance(n, (LookupJoin, ExpandJoin))
+                for n in _plan_nodes(plan)):
+            out = _execute_plan_dq(plan, db)
+            if out is not None:
+                return out
         _memo = {}
     hit = _memo.get(id(plan))
     if hit is not None:
