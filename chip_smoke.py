@@ -60,7 +60,36 @@ Phases, in order; any failure exits non-zero before the final line:
    first run took over ``DQ_SLOW_FIRST_S``) and the profiled run are
    made while the script stays under ``DQ_EXTRAS_BUDGET_S``, so the run
    ends inside its time limit; ``--dq-warm N`` makes them for every
-   query.
+   query. Phases 5 and 6 pin whole-plan fusion off
+   (``plan_fuse.FUSE_FORCE = False``): at sf 0.01 it would answer every
+   ``use_dq=False`` statement, and it declines the SF-10 tables anyway.
+7. Whole-plan fusion (``ssa/plan_fuse.py``: one CUDA graph replay per
+   statement), at the largest size the reference routes to it: every
+   table at most ``FUSE_MAX_ROWS`` (131,072) rows. It runs after the DQ
+   phase, so ``DQ_EXTRAS_BUDGET_S`` (counted from the script's start)
+   is untouched and the run grows by this phase's own time. First the
+   goldens through ``execute_plan(..., use_dq=False)`` with fusion on
+   (every statement fused, each equal to the walk); then TPC-H at sf
+   0.02 (120,088 lineitem rows at seed 42, all eight tables on the
+   card) and the 43 ClickBench queries at 131,072 hits rows, seed 42,
+   each statement fused (``use_dq=False``) and walked: one
+   ``{"fused": ...}`` or ``{"clickbench": ...}`` line per query with the
+   executor, fused stages, first-run and capture seconds, the medians of
+   ``FUSION_WARM`` warm runs of each path and their ratio, graph replays
+   per warm statement (must be 1) and grows, the CUDA kernels' launches
+   (a replay counts the kernels its graph holds), device operations and
+   busy share of one more warm run (``torch.profiler``), peak memory
+   and the graph pools' bytes. Every fused result equals the walk's; the
+   TPC-H ones equal the goldens (above) and the ClickBench ones the
+   numpy canondata (``reference_answers``), also through the default
+   routing (fusion for 41 queries, DQ for the two self-joined
+   COUNT(DISTINCT) plans). ``GROUP BY URL`` queries on the per-aggregate
+   lowering put ``grouped_sum`` inside graphs too. Then ``run_shared``
+   and ``run_stacked`` at B = 4 (TPC-H q1, q6, ClickBench q33: every
+   member's slice equals its serial run), and a cutoff sweep (q1, q3,
+   q6, ClickBench q33 fused and walked at 16K, 64K, 131K and 1M rows,
+   ``FUSE_MAX_ROWS`` raised in-process for the last point only; one
+   ``{"sweep_fusion": ...}`` line each).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -69,6 +98,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -575,15 +605,23 @@ def golden_digest(out, dicts, fields=None) -> str:
     return h.hexdigest()
 
 
-def golden_check(dev, use_dq=False, stats=None) -> list:
+def golden_check(dev, use_dq=False, stats=None, fuse=False) -> list:
     """All 22 queries at the pinned (sf, seed) on the card against
     tests/golden_tpch.json, through the walk (``use_dq=False``) or the
     default routing (``use_dq=None``: the DQ stage graph for every
     join-bearing plan, which ``stats`` then checks and counts; see
-    ``dq_instruments``). A digest that differs only through a float
-    column is held against the port's CPU run of the same query by the
-    same route (floats rtol 1e-12, everything else exact) and reported;
-    any other difference fails. Returns those float-column exceptions."""
+    ``dq_instruments``), with whole-plan fusion pinned off; with ``fuse``,
+    through ``use_dq=False`` with fusion on, every statement answered by
+    a fused plan and each result also equal to the walk's. A digest that
+    differs only through a float column is held against the port's CPU
+    run of the same query by the same route (floats rtol 1e-12,
+    everything else exact) and reported; any other difference fails.
+    Returns those float-column exceptions."""
+    with fusion_force(None if fuse else False):
+        return _golden_check(dev, use_dq, stats, fuse)
+
+
+def _golden_check(dev, use_dq, stats, fuse) -> list:
     from ydb_tpu_torch.workload import tpch
     from ydb_tpu_torch.workload.queries import TPCH
 
@@ -594,7 +632,14 @@ def golden_check(dev, use_dq=False, stats=None) -> list:
     exceptions = []
     for name, want in golden["queries"].items():
         pq = plan_sql(TPCH[name], db, catalog, use_dq)
-        if stats is None:
+        if fuse:
+            with routed() as seen:
+                res = run_sql(pq, db, use_dq)
+            assert seen == ["fused"], (name, seen)
+            with fusion_force(False):
+                same_result(res, run_sql(pq, db, use_dq), name)
+            drop_fused(db)
+        elif stats is None:
             res = run_sql(pq, db, use_dq)
         else:
             with dq_instruments() as st:
@@ -628,8 +673,9 @@ def golden_check(dev, use_dq=False, stats=None) -> list:
         exceptions.append({"query": name, "float_columns": differ})
         log(f"golden {name}: digest differs on the card only through float "
             f"column(s) {differ}; equal to the CPU run at rtol 1e-12")
-    log(f"SQL golden check ({'walk' if use_dq is False else 'default routing'}"
-        f"): {len(golden['queries'])} queries at sf {golden['sf']}, seed "
+    route = ("fused" if fuse else "walk" if use_dq is False
+             else "default routing")
+    log(f"SQL golden check ({route}): {len(golden['queries'])} queries at sf {golden['sf']}, seed "
         f"{golden['seed']} match tests/golden_tpch.json on the card "
         f"({len(exceptions)} float-column exceptions)")
     return exceptions
@@ -807,9 +853,9 @@ def sql_phase(tp, dev, ck):
     launches (counted from zero for the query's first run and read just
     after it), and where a warm run's time goes (``profile_sql``).
     Returns the rows, the database and catalog, and each query's result
-    (the DQ phase holds its results against them)."""
-    from ydb_tpu_torch.workload.queries import TPCH
-
+    (the DQ phase holds its results against them). Whole-plan fusion is
+    pinned off (at sf 0.01 it would answer every ``use_dq=False``
+    statement)."""
     t = tp.tables
     for table, key in (("orders", "o_orderkey"), ("customer", "c_custkey"),
                        ("supplier", "s_suppkey")):
@@ -829,6 +875,14 @@ def sql_phase(tp, dev, ck):
         "q13": lambda r: check_sql_q13(r, t, tp.dicts),
         "q18": lambda r: check_sql_q18(r, t, tp.dicts),
     }
+    with fusion_force(False):
+        rows, results = _sql_phase_queries(tp, db, catalog, checks, dev, ck)
+    return rows, db, catalog, checks, results
+
+
+def _sql_phase_queries(tp, db, catalog, checks, dev, ck):
+    from ydb_tpu_torch.workload.queries import TPCH
+
     rows, results = [], {}
     for name in sorted(TPCH, key=lambda q: int(q[1:])):
         torch.cuda.synchronize()
@@ -863,7 +917,7 @@ def sql_phase(tp, dev, ck):
                "numpy_checked": checked, **prof}
         rows.append(row)
         emit({"sql": row})
-    return rows, db, catalog, checks, results
+    return rows, results
 
 
 # ---------------- phase 6: the DQ stage graph ----------------
@@ -1148,6 +1202,431 @@ def dq_phase(tp, db, catalog, dev, ck, walk, checks, n_warm=None) -> list:
     return rows
 
 
+# ---------------- phase 7: whole-plan fusion ----------------
+
+
+#: TPC-H scale of the fused measurement: lineitem then has 120,088 rows,
+#: the largest scale whose tables all stay under plan_fuse.FUSE_MAX_ROWS
+FUSION_SF = 0.02
+#: ClickBench hits rows of the fused measurement: FUSE_MAX_ROWS itself
+FUSION_HITS_ROWS = 1 << 17
+#: warm runs per statement and path
+FUSION_WARM = 10
+#: the cutoff sweep: rows of lineitem / hits, and the TPC-H scale that
+#: gives about that many lineitem rows (the 131K point reuses FUSION_SF)
+SWEEP_POINTS = ((16384, 0.0027), (65536, 0.0109), (131072, FUSION_SF),
+                (1 << 20, 0.1667))
+SWEEP_QUERIES = ("q1", "q3", "q6", "cb_q33")
+
+
+class fusion_force:
+    """``plan_fuse.FUSE_FORCE = force`` for a block, restored after."""
+
+    def __init__(self, force):
+        self.force = force
+
+    def __enter__(self):
+        from ydb_tpu_torch.ssa import plan_fuse
+
+        self.saved = plan_fuse.FUSE_FORCE
+        plan_fuse.FUSE_FORCE = self.force
+
+    def __exit__(self, *exc):
+        from ydb_tpu_torch.ssa import plan_fuse
+
+        plan_fuse.FUSE_FORCE = self.saved
+        return False
+
+
+class routed:
+    """Record which executor answered each statement in the block
+    ("fused", "dq"; "walk" when neither did), by wrapping the executor's
+    two entry points from outside the package."""
+
+    def __enter__(self) -> list:
+        from ydb_tpu_torch.plan import executor
+
+        self.seen: list = []
+        self.saved = {}
+        for name in ("_execute_plan_fused", "_execute_plan_dq"):
+            real = self.saved[name] = getattr(executor, name)
+
+            def call(plan, db, _real=real, _kind=name.rsplit("_", 1)[-1]):
+                out = _real(plan, db)
+                if out is not None:
+                    self.seen.append(_kind)
+                return out
+
+            setattr(executor, name, call)
+        return self.seen
+
+    def __exit__(self, *exc):
+        from ydb_tpu_torch.plan import executor
+
+        for name, real in self.saved.items():
+            setattr(executor, name, real)
+        return False
+
+
+def fused_plans(db) -> list:
+    """The FusedPlans cached in ``db``."""
+    return [v for k, v in db._compile_cache.items()
+            if isinstance(k, tuple) and k and k[0] == "plan_fuse"]
+
+
+def drop_fused(db) -> None:
+    """Free every cached FusedPlan of ``db`` with its graphs and pools."""
+    for k in [k for k in db._compile_cache
+              if isinstance(k, tuple) and k and k[0] == "plan_fuse"]:
+        for cap in db._compile_cache.pop(k)._graphs.values():
+            cap.graph.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def timed_runs(fn, n: int) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def fused_statement(name, pq, db, ck, dev) -> tuple:
+    """One statement (planned, ``pq``) through the fused path
+    (``use_dq=False``, fusion on) and through the walk over ``db``: the
+    fused first run (a capture) with the CUDA kernels' launches counted
+    from zero, ``FUSION_WARM`` warm runs of each path, one more fused run
+    under ``torch.profiler``. The fused result must equal the walk's.
+    Returns (row, fused result, walk result)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = set(map(id, fused_plans(db)))
+    with fusion_force(None), routed() as seen:
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = run_sql(pq, db, False)
+        first_s = time.perf_counter() - t0
+        first_launches = dict(ck.LAUNCHES)
+        executor = seen[-1] if seen else "walk"
+        plans = [p for p in fused_plans(db) if id(p) not in before]
+        r0 = sum(p.replays for p in plans)
+        c0 = sum(p.captures for p in plans)
+        ck.reset_launches()
+        seen.clear()
+        warm = timed_runs(lambda: run_sql(pq, db, False), FUSION_WARM)
+        warm_launches = {k: v / FUSION_WARM for k, v in ck.LAUNCHES.items()}
+        assert seen == ["fused"] * FUSION_WARM, (name, seen)
+        replays = (sum(p.replays for p in plans) - r0) / FUSION_WARM
+        captures = sum(p.captures for p in plans) - c0
+        prof = busy_share(lambda: run_sql(pq, db, False))
+    peak = torch.cuda.max_memory_allocated(dev)
+    with fusion_force(False):
+        t0 = time.perf_counter()
+        walk = run_sql(pq, db, False)
+        walk_first_s = time.perf_counter() - t0
+        walk_warm = timed_runs(lambda: run_sql(pq, db, False), FUSION_WARM)
+    same_result(res, walk, name)
+    fused_med = statistics.median(warm)
+    walk_med = statistics.median(walk_warm)
+    row = {"query": name, "executor": executor,
+           "fused_stages": sum(p.fused_stages for p in plans),
+           "plans": len(plans), "rows": res.num_rows,
+           "first_s": first_s,
+           "capture_s": sum(p.capture_seconds or 0.0 for p in plans),
+           "first_trace_s": sum(p.first_trace_seconds or 0.0 for p in plans),
+           "warm_median_s": fused_med, "warm_s": warm,
+           "walk_first_s": walk_first_s, "walk_warm_median_s": walk_med,
+           "walk_warm_s": walk_warm, "walk_over_fused": walk_med / fused_med,
+           "replays_per_warm": replays, "captures_in_warm": captures,
+           "grows": sum(p.grows for p in plans),
+           "kernel_launches_first": first_launches,
+           "kernel_launches_per_warm": warm_launches,
+           "device_ops_per_warm": prof["device_ops"],
+           "device_busy_share": prof["device_busy_share"],
+           "profiled_wall_s": prof["profiled_wall_s"],
+           "top_kernels": prof["top_kernels"],
+           "peak_device_bytes": peak, "resident_bytes": base,
+           "query_peak_bytes": peak - base,
+           "pool_bytes": sum(p.pool_bytes or 0 for p in plans),
+           "equals_walk": True}
+    assert executor == "fused", (name, executor)
+    assert replays == 1 and captures == 0, (name, replays, captures)
+    return row, res, walk
+
+
+def fusion_golden_check(dev) -> list:
+    """The 22 queries at the goldens' (sf, seed) through
+    ``execute_plan(..., use_dq=False)`` with fusion on: every statement
+    answered by a fused plan, each equal to its golden and to the walk."""
+    exceptions = golden_check(dev, use_dq=False, fuse=True)
+    log(f"fusion golden check: 22 queries fused on the card, each equal to "
+        f"the walk; {len(exceptions)} float-column exceptions")
+    return exceptions
+
+
+def clickbench_database(cb, dev):
+    from ydb_tpu_torch.engine.scan import ColumnSource
+    from ydb_tpu_torch.plan import Database
+    from ydb_tpu_torch.sql.planner import Catalog
+    from ydb_tpu_torch.workload import clickbench
+
+    db = Database(
+        sources={"hits": ColumnSource(cb.hits, clickbench.HITS_SCHEMA,
+                                      cb.dicts).to_device(dev)},
+        dicts=cb.dicts, device=dev)
+    catalog = Catalog(schemas={"hits": clickbench.HITS_SCHEMA},
+                      primary_keys={"hits": ("WatchID",)}, dicts=cb.dicts)
+    return db, catalog
+
+
+def member_inputs(sig, db, dev) -> dict:
+    """A dispatch's staged inputs for ``sig`` from ``db``'s tables, as
+    fresh blocks (the serving tier's staged members)."""
+    from ydb_tpu_torch.blocks.block import TableBlock
+
+    out = {}
+    for s in sig.sites:
+        src = db.sources[s.table]
+        out[s.key] = TableBlock.from_numpy(
+            {m: src.columns[m] for m in s.read_cols}, s.in_schema, None,
+            capacity=s.capacity, device=dev)
+    return out
+
+
+def stacked_check(cases, dev) -> list:
+    """``run_shared`` and ``run_stacked`` at B = 4 for each (name, plan,
+    member databases): each member's slice of one stacked replay equals
+    that member's serial run, and the members' answers differ."""
+    from ydb_tpu_torch.plan import to_host
+    from ydb_tpu_torch.ssa import plan_fuse
+
+    rows = []
+    for name, plan, dbs in cases:
+        sig = plan_fuse.plan_signature(plan, dbs[0])
+        fused = plan_fuse.build(sig, dbs[0])
+        members = [member_inputs(sig, d, dev) for d in dbs]
+        serial = [to_host(fused.run_shared(m)[0]) for m in members]
+        out, _ = fused.run_stacked(members)
+        again, _ = fused.run_stacked(members)
+        for i, want in enumerate(serial):
+            same_result(to_host(plan_fuse.slice_member(out, i)), want, name)
+            same_result(to_host(plan_fuse.slice_member(again, i)), want,
+                        name)
+        distinct = len({json.dumps([np.asarray(v).tolist()
+                                    for v, _ in r.cols.values()])
+                        for r in serial})
+        assert distinct > 1, name
+        rows.append({"query": name, "batch": len(members),
+                     "replays": fused.replays, "captures": fused.captures,
+                     "pool_bytes": fused.pool_bytes,
+                     "distinct_member_results": distinct})
+        for cap in fused._graphs.values():
+            cap.graph.reset()
+    log("run_shared / run_stacked at B = 4: every member's slice equals its "
+        f"serial run: {json.dumps(rows)}")
+    return rows
+
+
+def sweep_point(name, pq, db, label) -> dict:
+    """Warm medians of one planned statement, fused and walked."""
+    with fusion_force(None), routed() as seen:
+        t0 = time.perf_counter()
+        res = run_sql(pq, db, False)
+        first_s = time.perf_counter() - t0
+        assert seen == ["fused"], (label, seen)
+        fused = statistics.median(timed_runs(
+            lambda: run_sql(pq, db, False), FUSION_WARM))
+    with fusion_force(False):
+        walk_res = run_sql(pq, db, False)
+        walk = statistics.median(timed_runs(
+            lambda: run_sql(pq, db, False), FUSION_WARM))
+    same_result(res, walk_res, label)
+    drop_fused(db)
+    return {"query": name, "fused_first_s": first_s,
+            "fused_warm_median_s": fused, "walk_warm_median_s": walk,
+            "walk_over_fused": walk / fused}
+
+
+def fusion_phase(dev, ck, sweep=True) -> dict:
+    """Phase 7: whole-plan fusion at the fused path's full size (see the
+    module docstring). Returns the rows of each sub-phase."""
+    from ydb_tpu_torch.plan.nodes import TableScan, Transform
+    from ydb_tpu_torch.ssa import kernels, plan_fuse
+    from ydb_tpu_torch.workload import clickbench, tpch
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    out["golden_float_exceptions"] = fusion_golden_check(dev)
+
+    # 2. TPC-H at FUSION_SF, tables on the card
+    tp = tpch.TpchData(sf=FUSION_SF, seed=42)
+    n_li = len(tp.tables["lineitem"]["l_orderkey"])
+    assert n_li <= plan_fuse.FUSE_MAX_ROWS, n_li
+    db, catalog = sql_database(tp, dev)
+    ck.reset_launches()
+    counted = {k: 0 for k in ck.LAUNCHES}
+
+    def count(row):
+        for k, v in row["kernel_launches_first"].items():
+            counted[k] += v
+        for k, v in row["kernel_launches_per_warm"].items():
+            counted[k] += round(v * FUSION_WARM)
+
+    tpch_rows = []
+    for name in sorted(TPCH, key=lambda q: int(q[1:])):
+        with fusion_force(None):
+            pq = plan_sql(TPCH[name], db, catalog, False)
+        row, _, _ = fused_statement(name, pq, db, ck, dev)
+        row["sf"] = FUSION_SF
+        count(row)
+        tpch_rows.append(row)
+        emit({"fused": row})
+        drop_fused(db)
+    out["tpch"] = tpch_rows
+    log(f"fused TPC-H sf {FUSION_SF} ({n_li} lineitem rows): 22 queries, "
+        f"one graph replay per warm statement, each equal to the walk; "
+        f"warm medians fused / walk summed "
+        f"{sum(r['warm_median_s'] for r in tpch_rows):.4f} / "
+        f"{sum(r['walk_warm_median_s'] for r in tpch_rows):.4f} s")
+
+    # 3. ClickBench at FUSION_HITS_ROWS: all 43 through the default routing
+    cb = clickbench.ClickBenchData(rows=FUSION_HITS_ROWS, seed=42)
+    cdb, ccat = clickbench_database(cb, dev)
+    want = clickbench.reference_answers(cb)
+    from ydb_tpu_torch.sql.parser import parse
+    from ydb_tpu_torch.sql.planner import plan_select_full
+
+    cb_rows = []
+    for name in sorted(clickbench.QUERIES, key=lambda q: int(q[1:])):
+        pq = plan_select_full(parse(clickbench.QUERIES[name]), ccat)
+        row, res, _ = fused_statement(f"cb_{name}", pq, cdb, ck, dev)
+        clickbench._verify(name, res, want[name], cb, pq)
+        with fusion_force(None), routed() as seen:
+            routed_res = run_sql(pq, cdb)
+        default = seen[-1]
+        clickbench._verify(name, routed_res, want[name], cb, pq)
+        same_result(routed_res, res, name)
+        row.update(query=name, hits_rows=FUSION_HITS_ROWS,
+                   default_executor=default, canondata_checked=True)
+        count(row)
+        cb_rows.append(row)
+        emit({"clickbench": row})
+        drop_fused(cdb)
+    out["clickbench"] = cb_rows
+    routes = collections.Counter(r["default_executor"] for r in cb_rows)
+    log(f"fused ClickBench at {FUSION_HITS_ROWS} rows: 43 queries equal "
+        f"reference_answers and the walk; default routing {dict(routes)}; "
+        f"warm medians fused / walk summed "
+        f"{sum(r['warm_median_s'] for r in cb_rows):.4f} / "
+        f"{sum(r['walk_warm_median_s'] for r in cb_rows):.4f} s")
+
+    # the per-aggregate group-by lowering (grouped_sum) inside graphs
+    peragg = []
+    kernels.FUSED_FORCE = False
+    try:
+        for name in ("q33", "q36"):
+            pq = plan_select_full(parse(clickbench.QUERIES[name]), ccat)
+            row, res, _ = fused_statement(f"cb_{name}_peragg", pq, cdb, ck,
+                                          dev)
+            clickbench._verify(name, res, want[name], cb, pq)
+            count(row)
+            peragg.append(row)
+            emit({"clickbench_peragg": row})
+            drop_fused(cdb)
+    finally:
+        kernels.FUSED_FORCE = None
+    out["clickbench_peragg"] = peragg
+    out["kernel_launches"] = counted
+    log(f"CUDA kernel launches on the fused path (graph replays): {counted}")
+    assert all(v > 0 for v in counted.values()), counted
+
+    # 4. run_shared / run_stacked at B = 4
+    from ydb_tpu_torch.engine.scan import ColumnSource
+    from ydb_tpu_torch.plan import Database
+
+    li = tp.tables["lineitem"]
+    li_dbs = []
+    for i in range(4):
+        cols = dict(li)
+        cols["l_quantity"] = li["l_quantity"] // (i + 1)
+        cols["l_discount"] = np.roll(li["l_discount"], i)
+        li_dbs.append(Database(
+            sources={"lineitem": ColumnSource(cols, tpch.LINEITEM_SCHEMA,
+                                              tp.dicts)},
+            dicts=tp.dicts, device=dev))
+    n_urls = len(cb.dicts["URL"])
+    hits_dbs = []
+    for i in range(4):
+        # the same table with its URL ids shifted: other answers, the
+        # same dictionary
+        cols = dict(cb.hits)
+        cols["URL"] = ((cb.hits["URL"] + 37 * i) % n_urls).astype(np.int32)
+        hits_dbs.append(Database(
+            sources={"hits": ColumnSource(cols, clickbench.HITS_SCHEMA,
+                                          cb.dicts)},
+            dicts=cb.dicts, device=dev))
+    q33 = plan_select_full(parse(clickbench.QUERIES["q33"]), ccat).plan
+    out["stacked"] = stacked_check([
+        ("q1", Transform(TableScan("lineitem"), tpch.q1_program()), li_dbs),
+        ("q6", Transform(TableScan("lineitem"), tpch.q6_program()), li_dbs),
+        ("cb_q33", q33, hits_dbs)], dev)
+    del hits_dbs, li_dbs
+
+    # 5. the cutoff sweep (a measurement; the default does not change)
+    if sweep:
+        out["sweep"] = cutoff_sweep(dev, tp, cb)
+    del db, cdb
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"fusion phase: {out['seconds']:.1f} s")
+    return out
+
+
+def cutoff_sweep(dev, tp, cb) -> list:
+    """TPC-H q1, q3, q6 and ClickBench q33, fused and walked at each of
+    SWEEP_POINTS (rows of lineitem / hits); above FUSE_MAX_ROWS with the
+    cutoff raised in-process for that point only."""
+    from ydb_tpu_torch.sql.parser import parse
+    from ydb_tpu_torch.sql.planner import plan_select_full
+    from ydb_tpu_torch.ssa import plan_fuse
+    from ydb_tpu_torch.workload import clickbench, tpch
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    rows = []
+    for hits_rows, sf in SWEEP_POINTS:
+        t = tp if sf == FUSION_SF else tpch.TpchData(sf=sf, seed=42)
+        c = (cb if hits_rows == FUSION_HITS_ROWS
+             else clickbench.ClickBenchData(rows=hits_rows, seed=42))
+        saved = plan_fuse.FUSE_MAX_ROWS
+        plan_fuse.FUSE_MAX_ROWS = max(saved, 1 << 21)
+        try:
+            db, catalog = sql_database(t, dev)
+            cdb, ccat = clickbench_database(c, dev)
+            n_li = len(t.tables["lineitem"]["l_orderkey"])
+            for q in SWEEP_QUERIES:
+                if q.startswith("cb_"):
+                    pq = plan_select_full(
+                        parse(clickbench.QUERIES[q[3:]]), ccat)
+                    r = sweep_point(q, pq, cdb, f"{q}@{hits_rows}")
+                    r["rows"] = hits_rows
+                else:
+                    pq = plan_sql(TPCH[q], db, catalog, False)
+                    r = sweep_point(q, pq, db, f"{q}@{sf}")
+                    r.update(rows=n_li, sf=sf)
+                r["above_cutoff"] = r["rows"] > saved
+                rows.append(r)
+                emit({"sweep_fusion": r})
+            del db, cdb
+            torch.cuda.empty_cache()
+        finally:
+            plan_fuse.FUSE_MAX_ROWS = saved
+    return rows
+
+
 def tpch_days(s: str) -> int:
     return int(np.datetime64(s, "D").astype(np.int32))
 
@@ -1397,9 +1876,14 @@ def main(argv=None) -> int:
         f"{sum(r['warm_median_s'] for r in timed):.4f} / "
         f"{sum(walk_median[r['query']] for r in timed):.4f} s")
     del db, walk
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: whole-plan fusion ----
+    fusion = fusion_phase(dev, ck)
     for row in kernel_rows:
         row["sql_launches"] = sql_launches[row["name"]]
         row["dq_launches"] = dq_launches[row["name"]]
+        row["fused_launches"] = fusion["kernel_launches"][row["name"]]
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
@@ -1407,7 +1891,7 @@ def main(argv=None) -> int:
                   sf=args.sf, lineitem_rows=n_li, hits_rows=args.hits_rows,
                   sql=sql_rows, sql_sf=sql_tp.sf,
                   sql_golden_float_exceptions=exceptions,
-                  sql_dq=dq_rows, sql_dq_golden=dq_golden)
+                  sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

@@ -224,6 +224,11 @@ DQ_PATH_MODULES = (
     "ydb_tpu_torch.dq.compute", "ydb_tpu_torch.native", "ydb_tpu_torch.kqp",
     "ydb_tpu_torch.kqp.dq_lower",
 )
+#: the fused path's modules, likewise
+FUSION_PATH_MODULES = (
+    "ydb_tpu_torch.ssa.plan_fuse", "ydb_tpu_torch.ssa.cuda_kernels",
+    "ydb_tpu_torch.workload.clickbench",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -245,9 +250,9 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         missing = sorted(set(%r) - set(names))
         assert not missing, missing
         print(len(names))
-    """ % (SQL_PATH_MODULES + DQ_PATH_MODULES,))
+    """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= (15 + len(SQL_PATH_MODULES)
-                                           + len(DQ_PATH_MODULES))
+                                           + len(DQ_PATH_MODULES) + 1)

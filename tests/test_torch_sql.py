@@ -1,7 +1,9 @@
 """The SQL path through the port's plan walk: parse -> plan ->
 ``execute_plan(..., use_dq=False)`` -> ``to_host`` in ``ydb_tpu_torch``,
-on the CPU (the DQ stage graph, the default for join-bearing plans, has
-its own tests in ``tests/test_torch_sql_dq.py``).
+on the CPU, with whole-plan fusion pinned off in both packages
+(``plan_fuse.FUSE_FORCE = False``): the DQ stage graph, the default for
+join-bearing plans, has its own tests in ``tests/test_torch_sql_dq.py``,
+and fusion, the default for the rest, in ``tests/test_torch_plan_fuse.py``.
 
 * All 22 TPC-H queries at sf 0.01, seed 11 against the pinned rows and
   sha256 digests of ``tests/golden_tpch.json`` (the digest as
@@ -46,6 +48,7 @@ from ydb_tpu_torch.sql.planner import (
     plan_select,
     plan_select_full,
 )
+from ydb_tpu_torch.ssa import plan_fuse as port_plan_fuse
 from ydb_tpu_torch.workload import tpch
 from ydb_tpu_torch.workload.queries import TPCH
 
@@ -64,6 +67,9 @@ def reference_walk(monkeypatch):
     from ydb_tpu.ssa import plan_fuse
 
     monkeypatch.setattr(plan_fuse, "FUSE_FORCE", False)
+    # the port's use_dq=False statements walk too (fusion has its own
+    # tests in tests/test_torch_plan_fuse.py)
+    monkeypatch.setattr(port_plan_fuse, "FUSE_FORCE", False)
 
 
 @pytest.fixture(scope="module")

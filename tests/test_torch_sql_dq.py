@@ -2,7 +2,9 @@
 
 * All 22 TPC-H queries at sf 0.01, seed 11 through the port's default
   ``execute_plan`` against ``tests/golden_tpch.json``: every join-bearing
-  plan must be answered by the DQ stage graph, q1 and q6 by the walk.
+  plan must be answered by the DQ stage graph, q1 and q6 by the walk
+  (whole-plan fusion, which would answer them by default, is pinned off
+  here in both packages; ``tests/test_torch_plan_fuse.py`` tests it).
 * The port's ``plan_to_stages`` equal to the reference's, field by field,
   for all 22 plans.
 * Routing: the default sends joins to DQ, ``use_dq=False`` and
@@ -48,6 +50,7 @@ from ydb_tpu_torch.plan.nodes import (
 )
 from ydb_tpu_torch.sql.parser import parse
 from ydb_tpu_torch.sql.planner import Catalog, plan_select_full
+from ydb_tpu_torch.ssa import plan_fuse as port_plan_fuse
 from ydb_tpu_torch.ssa.program import Program, ProjectStep
 from ydb_tpu_torch.workload import tpch
 from ydb_tpu_torch.workload.queries import TPCH
@@ -66,6 +69,9 @@ def _stub_reference(mp):
     from ydb_tpu.ssa import plan_fuse
 
     mp.setattr(plan_fuse, "FUSE_FORCE", False)
+    # the port too: the routing tested here is DQ or the walk
+    # (whole-plan fusion has its own tests)
+    mp.setattr(port_plan_fuse, "FUSE_FORCE", False)
 
 
 @pytest.fixture(autouse=True)

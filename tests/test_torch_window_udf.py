@@ -68,6 +68,9 @@ def reference_walk(monkeypatch):
     from ydb_tpu.ssa import plan_fuse
 
     monkeypatch.setattr(plan_fuse, "FUSE_FORCE", False)
+    from ydb_tpu_torch.ssa import plan_fuse as port_plan_fuse
+
+    monkeypatch.setattr(port_plan_fuse, "FUSE_FORCE", False)
 
 
 # ---------------- window steps ----------------

@@ -1,23 +1,26 @@
-"""Plan executor: DQ stage graph for join-bearing plans, single-chip
-walk for the rest.
+"""Plan executor: DQ stage graph for join-bearing plans, whole-plan
+fusion for the rest, the single-chip walk where neither applies.
 
-The counterpart of ``ydb_tpu/plan/executor.py`` with whole-plan fusion
-off. As in the reference, every plan containing a join lowers to the DQ
-task graph — scan stages feeding hash-partitioned channels into
-grace-bucket join stages and a final aggregate — executed by credit-flow
-compute actors (``kqp/dq_lower.py`` + ``dq/compute.py``). Join-free
-plans, plans that do not lower (a CTE-shared subtree feeding two
-consumers) and ``use_dq=False`` take the walk: the plan tree is walked
-bottom-up, table scans stream blocks through compiled SSA programs
-(``engine/scan.py``), joins run the sort-based kernels of
-``ssa/join.py``, and transforms compile against the inferred
+The counterpart of ``ydb_tpu/plan/executor.py``, routing as it does
+(``execute_plan``): every plan containing a join lowers to the DQ task
+graph — scan stages feeding hash-partitioned channels into grace-bucket
+join stages and a final aggregate — executed by credit-flow compute
+actors (``kqp/dq_lower.py`` + ``dq/compute.py``). Every other plan that
+is not a bare ``TableScan`` (and ``use_dq=False``, and a plan DQ does
+not lower) goes to whole-plan fusion (``ssa/plan_fuse.py``: one CUDA
+graph replay per statement) when ``plan_fuse.fusion_enabled()`` and the
+plan is fusible (small tables, no UDF). The rest takes the walk: the
+plan tree is walked bottom-up, table scans stream blocks through
+compiled SSA programs (``engine/scan.py``), joins run the sort-based
+kernels of ``ssa/join.py``, and transforms compile against the inferred
 intermediate schema. Everything runs on the database's device (CUDA
 unless ``Database.device`` names another).
 
-Not in the port yet, each with its ROADMAP.md queue A item: whole-plan
-fusion (item 9), zone-map pruning, the block cache and the table
-statistics behind DQ join sizing (item 10), tracing and probes (items 12
-and 14), and the mesh executor (item 13).
+Not in the port yet, each with its ROADMAP.md queue A item: zone-map
+pruning, the block cache, the resident tier and the table statistics
+behind DQ join sizing (item 10; fused staging reads the source's
+columns directly), tracing, probes, ``StageTimer`` and the ``fuse.trace``
+chaos hook (items 12 and 14), and the mesh executor (item 13).
 """
 
 from __future__ import annotations
@@ -163,15 +166,26 @@ def execute_plan(plan: PlanNode, db: Database,
                  _memo: dict | None = None,
                  use_dq: bool | None = None) -> TableBlock:
     """Execute a logical plan: join-bearing plans route through the DQ
-    stage graph (``use_dq=None`` follows ``DQ_ON``, on by default);
-    join-free plans, shapes that do not lower and ``use_dq=False`` use
-    the bottom-up walk. ``_memo`` dedupes shared subtrees (a CTE
-    referenced from several places executes once per statement)."""
+    stage graph (``use_dq=None`` follows ``DQ_ON``, on by default); the
+    rest (join-free plans, shapes that do not lower, ``use_dq=False``)
+    through whole-plan fusion when it is enabled, the plan is not a bare
+    ``TableScan`` and it is fusible; otherwise the bottom-up walk.
+    ``_memo`` dedupes shared subtrees (a CTE referenced from several
+    places executes once per statement)."""
     if _memo is None:
         if (use_dq if use_dq is not None else DQ_ON) and any(
                 isinstance(n, (LookupJoin, ExpandJoin))
                 for n in _plan_nodes(plan)):
             out = _execute_plan_dq(plan, db)
+            if out is not None:
+                return out
+        # whole-plan fusion: one dispatch for the whole tree when it is
+        # fusible. A bare TableScan is already a single fragment — the
+        # walk's streaming scan stays.
+        from ydb_tpu_torch.ssa import plan_fuse
+
+        if plan_fuse.fusion_enabled() and not isinstance(plan, TableScan):
+            out = _execute_plan_fused(plan, db)
             if out is not None:
                 return out
         _memo = {}
@@ -195,6 +209,75 @@ def _scan_node(plan: TableScan, db: Database, dev) -> TableBlock:
         db._compile_cache[key] = ex
     return ex.run_stream(src.blocks(SCAN_BLOCK_ROWS, ex.read_cols,
                                     device=dev))
+
+
+def _stage_fused_site(site, db: Database, fused) -> TableBlock:
+    """One fused scan site's rows at its shape-class capacity, on the
+    plan's device. On CUDA they are copied straight into the fused plan's
+    static input block, which is returned (a host table is one copy from
+    the host, a table held on the card one copy on the card); elsewhere
+    they make a fresh block. A source that is not a ``ColumnSource`` (a
+    block stream, as the storage tiers of ROADMAP.md item 10 give)
+    streams its blocks, which ``fit_blocks`` merges and pads."""
+    from ydb_tpu_torch.ssa import plan_fuse
+
+    src = db.sources[site.table]
+    dev = fused.device
+    if not isinstance(src, ColumnSource):
+        blocks = tuple(src.blocks(SCAN_BLOCK_ROWS, site.read_cols,
+                                  device=dev))
+        return plan_fuse.fit_blocks(blocks, site.capacity)
+    arrays = {m: src.columns[m] for m in site.read_cols}
+    validity = None
+    if src.validity:
+        validity = {m: src.validity[m] for m in site.read_cols
+                    if m in src.validity}
+    if dev.type == "cuda":
+        return fused.stage_into(site.key, arrays, validity, src.num_rows)
+    return TableBlock.from_numpy(arrays, site.in_schema, validity,
+                                 capacity=site.capacity, device=dev)
+
+
+def _run_fused(fused, db: Database) -> TableBlock:
+    """Stage every scan site, dispatch the fused plan once, and handle
+    expand-join overflow: grow the capacity (the cached plan keeps it for
+    later statements) and dispatch again over the same staged inputs,
+    which no dispatch writes. The plan's lock is held from staging to
+    the result, so no other statement restages its inputs between."""
+    with fused.lock:
+        inputs = {s.key: _stage_fused_site(s, db, fused)
+                  for s in fused.sites}
+        while True:
+            # cooperative cancellation between (uninterruptible) fused
+            # dispatches: a statement past its deadline stops here
+            statement_deadline.check_current("fused dispatch")
+            out, totals = fused.run(inputs)
+            over = fused.overflowed(totals)
+            if not over:
+                return out
+            for j in over:
+                fused.grow(j, totals[j])
+
+
+def _execute_plan_fused(plan: PlanNode, db: Database) -> TableBlock | None:
+    """Whole-plan fused path (``ssa/plan_fuse.py``): one dispatch per
+    statement over one FusedPlan per (plan fingerprint, shape class),
+    cached in ``db._compile_cache``. Returns None when the plan is not
+    fusible (the caller falls back to the walk)."""
+    from ydb_tpu_torch.ssa import plan_fuse
+
+    sig = plan_fuse.plan_signature_cached(plan, db)
+    if sig is None or not sig.sites:
+        return None
+    key = sig.cache_key(db)
+    fused = db._compile_cache.get(key)
+    if fused is None:
+        try:
+            fused = plan_fuse.build(sig, db)
+        except plan_fuse.Unfusible:
+            return None
+        db._compile_cache[key] = fused
+    return _run_fused(fused, db)
 
 
 def _compiled_transform(plan: Transform, schema, db: Database, dev):

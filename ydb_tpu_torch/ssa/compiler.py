@@ -118,6 +118,27 @@ class _Lowering:
         return self.key_spaces.get(name)
 
 
+def _compile_program(
+    program: Program,
+    schema: dtypes.Schema,
+    dicts: DictionarySet | None = None,
+    key_spaces: dict[str, int] | None = None,
+    partial_slots: bool = False,
+    dict_aliases: dict[str, str] | None = None,
+) -> CompiledProgram:
+    """The span-free lowering entry point that whole-plan fusion
+    (``ssa/plan_fuse.py``) calls for every fragment, with the reference's
+    signature. The port has no tracing spans yet, so it is
+    ``compile_program``; the ``partial_slots`` layout (dense group-by
+    states kept in their slots) comes with the mesh executor."""
+    if partial_slots:
+        raise NotImplementedError(
+            "partial_slots (the dense_slots group-by layout) is not in the "
+            "port yet")
+    return compile_program(program, schema, dicts, key_spaces,
+                           dict_aliases=dict_aliases)
+
+
 def compile_program(
     program: Program,
     schema: dtypes.Schema,

@@ -21,7 +21,11 @@ the output) from a zeroed per-device slab, one row of tickets per
 stream: the CTA that counts last for a slice resets its ticket, so
 launches on one stream, and replays of a captured CUDA graph, find
 them at zero. A graph keeps the tickets of the stream it was captured
-on: replay it on one stream at a time.
+on: replay it on one stream at a time. The slab is allocated at the
+device's first launch, which must not be inside a capture (it would
+live in the graph's private pool, freed with the graph): ``_tickets``
+raises there. A stream's row is a view of the slab, so a stream's first
+launch may be captured.
 
 Beside each kernel sits its plain torch version (``*_plain``). A wrapper
 given a CUDA tensor launches the kernel or raises; given a CPU tensor it
@@ -68,8 +72,14 @@ TICKET_STREAMS = 256
 FORCE: bool | None = None
 
 #: kernel launches since the last ``reset_launches()``; each wrapper adds
-#: one where it launches its CUDA kernel and nowhere else
+#: one where it launches its CUDA kernel and nowhere else. A call made
+#: while a CUDA graph is being captured launches nothing: it adds one to
+#: ``CAPTURED`` instead, and every replay of that graph adds the kernels
+#: it holds here (``count_replay``)
 LAUNCHES = {"grouped_sum": 0, "grouped_sum_multi": 0}
+#: kernel launches recorded into CUDA graphs under capture (never reset:
+#: a capturer reads the difference across its capture)
+CAPTURED = {"grouped_sum": 0, "grouped_sum_multi": 0}
 
 SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "grouped_sum.cu"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent.parent
@@ -112,6 +122,23 @@ def supported_fused(dtype, num_groups: int, n_slots: int) -> bool:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name`` on the current stream: counted now,
+    or, under graph capture, at every replay of the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def count_replay(captured: dict) -> None:
+    """One replay of a CUDA graph that holds ``captured`` kernel launches
+    (the difference of ``CAPTURED`` across its capture): each of them
+    launches again."""
+    for k, n in captured.items():
+        LAUNCHES[k] += n
 
 
 # ---------------- build + bind ----------------
@@ -227,6 +254,13 @@ def _tickets(device: torch.device, stream: int) -> torch.Tensor:
         if row is None:
             slab = _ticket_slabs.get(device.index)
             if slab is None:
+                if (device.type == "cuda"
+                        and torch.cuda.is_current_stream_capturing()):
+                    raise RuntimeError(
+                        f"grouped_sum: first launch on {device} inside a "
+                        "CUDA graph capture; launch once outside capture "
+                        "first, so the ticket slab lives outside the "
+                        "graph's private pool")
                 slab = _ticket_slabs[device.index] = torch.zeros(
                     (TICKET_STREAMS,
                      -(-MAX_FUSED_SLOTS // SLOT_CHUNK) * CLUSTER),
@@ -312,7 +346,7 @@ def grouped_sum_multi(values: torch.Tensor, gid: torch.Tensor,
     if not values.is_cuda:
         return grouped_sum_multi_plain(values, gid, num_groups)
     out = _launch("ydb_grouped_sum_multi", values, gid, num_groups)
-    LAUNCHES["grouped_sum_multi"] += 1
+    _count("grouped_sum_multi")
     return out
 
 
@@ -334,7 +368,7 @@ def grouped_sum(values: torch.Tensor, gid: torch.Tensor,
     if not values.is_cuda:
         return grouped_sum_plain(values, gid, num_groups)
     out = _launch("ydb_grouped_sum", values[:, None], gid, num_groups)
-    LAUNCHES["grouped_sum"] += 1
+    _count("grouped_sum")
     return out[:, 0]
 
 

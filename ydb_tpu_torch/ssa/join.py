@@ -65,7 +65,11 @@ def _sorted_build(bk: torch.Tensor, blive: torch.Tensor):
     bk_sorted = bk[order]
     n_live = blive.sum().to(torch.int32)
     cap = bk.shape[0]
-    last_live = bk_sorted[torch.clamp(n_live - 1, min=0).long()]
+    # a one-element gather, not bk_sorted[0-d tensor]: indexing with a
+    # 0-d tensor may read the index back to the host, which a CUDA graph
+    # capture forbids
+    last_live = bk_sorted.index_select(
+        0, torch.clamp(n_live - 1, min=0).long().reshape(1))
     pos = torch.arange(cap, dtype=torch.int32, device=bk.device)
     bk_sorted = torch.where(pos < n_live, bk_sorted, last_live).contiguous()
     return order, bk_sorted, n_live

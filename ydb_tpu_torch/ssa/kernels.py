@@ -217,14 +217,15 @@ def group_ids_sorted(keys: list[Column], live: torch.Tensor,
                              device=perm.device)
 
     live_s = live[perm]
-    changed = torch.zeros(live.shape, dtype=torch.bool, device=live.device)
+    # row 0 always starts a group (a mask, not ``changed[0] = True``: that
+    # copies a host scalar to the device, which a CUDA graph forbids)
+    changed = torch.arange(live.shape[0], device=live.device) == 0
     for k in keys:
         d, v = k.data[perm], k.validity[perm]
         # normalize garbage under NULL slots so all NULLs form one group
         d = torch.where(v, d, torch.zeros_like(d))
         diff = (d != torch.roll(d, 1)) | (v != torch.roll(v, 1))
         changed = changed | diff
-    changed[0] = True
     # boundaries only count within the live prefix
     boundary = changed & live_s
     seg_sorted = torch.cumsum(boundary.to(torch.int32), 0,

@@ -1,18 +1,26 @@
-"""ClickBench workload: the hits-table generator and the URL group-by
-queries (q33, q36) as SSA programs.
+"""ClickBench workload: the hits-table generator, the 43 official
+queries as SQL, their independent numpy answers, and the URL group-by
+queries (q33, q36) as hand-built SSA programs.
 
-The port's copy of the generator of ``ydb_tpu/workload/clickbench.py``
-(reference: ydb/library/workload/clickbench/click_bench_queries.sql),
-unchanged so a seed gives the same hits table as the reference. The URL
-dictionary is drawn from a pool of 2000 synthetic paths (about 1750
-distinct values), so ``GROUP BY URL`` lands in the group-by tier above
+The port's copy of ``ydb_tpu/workload/clickbench.py`` (reference:
+ydb/library/workload/clickbench/click_bench_queries.sql and the
+canondata under ydb/tests/functional/clickbench/), unchanged so a seed
+gives the same hits table as the reference: ``QUERIES`` (q0-q42, with
+the reference's adaptations for synthetic row counts and its
+deterministic ORDER BY tiebreakers), ``reference_answers`` (the
+canondata: an independent numpy implementation the engine results must
+match exactly), ``run_clickbench`` and ``_verify``. The URL dictionary
+is drawn from a pool of 2000 synthetic paths (about 1750 distinct
+values), so ``GROUP BY URL`` lands in the group-by tier above
 ``kernels.ONEHOT_GROUP_LIMIT`` (512) groups — the tier of the CUDA
-kernels. ``q33_q36_answers`` is an independent vectorised numpy
-reference for the two queries (``np.bincount`` over URL ids), fast
-enough for the published row counts.
+kernels. ``q33_program``/``q36_program`` express q33 and q36 for the
+scan path, and ``q33_q36_answers`` is a vectorised numpy reference for
+the two, fast enough for the published row counts.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 
@@ -212,17 +220,435 @@ class ClickBenchData:
         return HITS_SCHEMA
 
 
-#: the SQL text of the two queries the programs below express
 QUERIES = {
+    "q0": "select count(*) as c from hits",
+    "q1": "select count(*) as c from hits where AdvEngineID <> 0",
+    "q2": ("select sum(AdvEngineID) as s, count(*) as c, "
+           "avg(ResolutionWidth) as w from hits"),
+    "q3": "select avg(UserID) as u from hits",
+    "q4": "select count(distinct UserID) as u from hits",
+    "q5": "select count(distinct SearchPhrase) as p from hits",
+    "q6": ("select min(EventDate) as lo, max(EventDate) as hi "
+           "from hits"),
+    "q7": ("select AdvEngineID, count(*) as c from hits "
+           "where AdvEngineID <> 0 group by AdvEngineID "
+           "order by count(*) desc, AdvEngineID"),
+    "q8": ("select RegionID, count(distinct UserID) as u from hits "
+           "group by RegionID order by u desc, RegionID limit 10"),
+    "q9": ("select RegionID, sum(AdvEngineID) as s, count(*) as c, "
+           "avg(ResolutionWidth) as w, count(distinct UserID) as u "
+           "from hits group by RegionID order by c desc, RegionID "
+           "limit 10"),
+    "q10": ("select MobilePhoneModel, count(distinct UserID) as u "
+            "from hits where MobilePhoneModel <> '' "
+            "group by MobilePhoneModel "
+            "order by u desc, MobilePhoneModel limit 10"),
+    "q11": ("select MobilePhone, MobilePhoneModel, "
+            "count(distinct UserID) as u from hits "
+            "where MobilePhoneModel <> '' "
+            "group by MobilePhone, MobilePhoneModel "
+            "order by u desc, MobilePhone, MobilePhoneModel limit 10"),
+    "q12": ("select SearchPhrase, count(*) as c from hits "
+            "where SearchPhrase <> '' group by SearchPhrase "
+            "order by c desc, SearchPhrase limit 10"),
+    "q13": ("select SearchPhrase, count(distinct UserID) as u from hits "
+            "where SearchPhrase <> '' group by SearchPhrase "
+            "order by u desc, SearchPhrase limit 10"),
+    "q14": ("select SearchEngineID, SearchPhrase, count(*) as c "
+            "from hits where SearchPhrase <> '' "
+            "group by SearchEngineID, SearchPhrase "
+            "order by c desc, SearchEngineID, SearchPhrase limit 10"),
+    "q15": ("select UserID, count(*) as c from hits group by UserID "
+            "order by c desc, UserID limit 10"),
+    "q16": ("select UserID, SearchPhrase, count(*) as c from hits "
+            "group by UserID, SearchPhrase "
+            "order by c desc, UserID, SearchPhrase limit 10"),
+    "q17": ("select UserID, SearchPhrase, count(*) as c from hits "
+            "group by UserID, SearchPhrase limit 10"),
+    "q18": ("select UserID, extract(minute from EventTime) as m, "
+            "SearchPhrase, count(*) as c from hits "
+            "group by UserID, extract(minute from EventTime), "
+            "SearchPhrase order by c desc, UserID, m, SearchPhrase "
+            "limit 10"),
+    "q19": "select UserID from hits where UserID = 435090932899640449",
+    "q20": ("select count(*) as c from hits "
+            "where URL like '%google%'"),
+    "q21": ("select SearchPhrase, min(URL) as u, count(*) as c "
+            "from hits where URL like '%google%' "
+            "and SearchPhrase <> '' group by SearchPhrase "
+            "order by c desc, SearchPhrase limit 10"),
+    "q22": ("select SearchPhrase, min(URL) as u, min(Title) as t, "
+            "count(*) as c, count(distinct UserID) as uu from hits "
+            "where Title like '%Google%' "
+            "and URL not like '%.google.%' "
+            "and SearchPhrase <> '' group by SearchPhrase "
+            "order by c desc, SearchPhrase limit 10"),
+    "q23": ("select * from hits where URL like '%google%' "
+            "order by EventTime limit 10"),
+    "q24": ("select SearchPhrase, EventTime from hits "
+            "where SearchPhrase <> '' order by EventTime limit 10"),
+    "q25": ("select SearchPhrase from hits where SearchPhrase <> '' "
+            "order by SearchPhrase limit 10"),
+    "q26": ("select SearchPhrase, EventTime from hits "
+            "where SearchPhrase <> '' "
+            "order by EventTime, SearchPhrase limit 10"),
+    "q27": ("select CounterID, avg(length(URL)) as l, count(*) as c "
+            "from hits where URL <> '' group by CounterID "
+            "having count(*) > 4 order by l desc, CounterID "
+            "limit 25"),
+    # q28: official groups by Url::CutWWW(Url::GetHost(Referer)); the
+    # HAVING threshold adapts 100000 -> 4 for synthetic scale (as q27)
+    "q28": ("select cutwww(gethost(Referer)) as hkey, "
+            "avg(length(Referer)) as l, count(*) as c, "
+            "min(Referer) as m from hits where Referer <> '' "
+            "group by hkey having count(*) > 4 "
+            "order by l desc, hkey limit 25"),
+    "q29": ("select sum(ResolutionWidth) as s0, " + ", ".join(
+        f"sum(ResolutionWidth + {k}) as s{k}" for k in range(1, 90))
+        + " from hits"),
+    "q30": ("select SearchEngineID, ClientIP, count(*) as c, "
+            "sum(IsRefresh) as r, avg(ResolutionWidth) as w from hits "
+            "where SearchPhrase <> '' "
+            "group by SearchEngineID, ClientIP "
+            "order by c desc, SearchEngineID, ClientIP limit 10"),
+    "q31": ("select WatchID, ClientIP, count(*) as c, "
+            "sum(IsRefresh) as r, avg(ResolutionWidth) as w from hits "
+            "where SearchPhrase <> '' group by WatchID, ClientIP "
+            "order by c desc, WatchID, ClientIP limit 10"),
+    "q32": ("select WatchID, ClientIP, count(*) as c, "
+            "sum(IsRefresh) as r, avg(ResolutionWidth) as w from hits "
+            "group by WatchID, ClientIP "
+            "order by c desc, WatchID, ClientIP limit 10"),
     "q33": ("select URL, count(*) as c from hits group by URL "
             "order by c desc, URL limit 10"),
+    "q34": ("select UserID, URL, count(*) as c from hits "
+            "group by UserID, URL order by c desc, UserID, URL "
+            "limit 10"),
+    "q35": ("select ClientIP, ClientIP - 1 as c1, ClientIP - 2 as c2, "
+            "ClientIP - 3 as c3, count(*) as c from hits "
+            "group by ClientIP, c1, c2, c3 "
+            "order by c desc, ClientIP limit 10"),
     "q36": ("select URL, count(*) as pv from hits "
             "where CounterID = 62 "
             "and EventDate >= date '2013-07-01' "
             "and EventDate <= date '2013-07-31' "
             "and DontCountHits = 0 and IsRefresh = 0 and URL <> '' "
             "group by URL order by pv desc, URL limit 10"),
+    "q37": ("select Title, count(*) as pv from hits "
+            "where CounterID = 62 "
+            "and EventDate >= date '2013-07-01' "
+            "and EventDate <= date '2013-07-31' "
+            "and DontCountHits = 0 and IsRefresh = 0 and Title <> '' "
+            "group by Title order by pv desc, Title limit 10"),
+    "q38": ("select URL, count(*) as pv from hits "
+            "where CounterID = 62 "
+            "and EventDate >= date '2013-07-01' "
+            "and EventDate <= date '2013-07-31' "
+            "and IsRefresh = 0 and IsLink <> 0 and IsDownload = 0 "
+            "group by URL order by pv desc, URL limit 10"),
+    "q39": ("select TraficSourceID, SearchEngineID, AdvEngineID, "
+            "case when SearchEngineID = 0 and AdvEngineID = 0 "
+            "then Referer else '' end as src, URL as dst, "
+            "count(*) as pv from hits where CounterID = 62 "
+            "and EventDate >= date '2013-07-01' "
+            "and EventDate <= date '2013-07-31' and IsRefresh = 0 "
+            "group by TraficSourceID, SearchEngineID, AdvEngineID, "
+            "src, dst order by pv desc, TraficSourceID, "
+            "SearchEngineID, AdvEngineID, src, dst limit 10"),
+    "q40": ("select URLHash, EventDate, count(*) as pv from hits "
+            "where CounterID = 62 "
+            "and EventDate >= date '2013-07-01' "
+            "and EventDate <= date '2013-07-31' and IsRefresh = 0 "
+            "and TraficSourceID in (-1, 6) "
+            f"and RefererHash = {REFERERHASH_HOT} "
+            "group by URLHash, EventDate "
+            "order by pv desc, URLHash, EventDate limit 10"),
+    "q41": ("select WindowClientWidth, WindowClientHeight, "
+            "count(*) as pv from hits where CounterID = 62 "
+            "and EventDate >= date '2013-07-01' "
+            "and EventDate <= date '2013-07-31' and IsRefresh = 0 "
+            f"and DontCountHits = 0 and URLHash = {URLHASH_HOT} "
+            "group by WindowClientWidth, WindowClientHeight "
+            "order by pv desc, WindowClientWidth, WindowClientHeight "
+            "limit 10"),
+    "q42": ("select EventTime / 60000000 as minute, count(*) as pv "
+            "from hits where CounterID = 62 "
+            "and EventDate >= date '2013-07-14' "
+            "and EventDate <= date '2013-07-15' and IsRefresh = 0 "
+            "and DontCountHits = 0 group by minute "
+            "order by minute limit 10"),
 }
+
+
+def reference_answers(data: ClickBenchData) -> dict[str, object]:
+    """Independent numpy reference results (the canondata)."""
+    h = data.hits
+    n = len(h["WatchID"])
+    phrases = np.array(
+        data.dicts["SearchPhrase"].values + [b""], dtype=object
+    )[h["SearchPhrase"]]
+    models = np.array(
+        data.dicts["MobilePhoneModel"].values + [b""], dtype=object
+    )[h["MobilePhoneModel"]]
+    adv = h["AdvEngineID"]
+    out: dict[str, object] = {}
+    out["q0"] = n
+    out["q1"] = int((adv != 0).sum())
+    out["q2"] = (int(adv.sum()), n,
+                 float(h["ResolutionWidth"].astype(np.float64).mean()))
+    out["q3"] = float(h["UserID"].astype(np.float64).mean())
+    out["q4"] = len(set(h["UserID"].tolist()))
+    out["q5"] = len(set(h["SearchPhrase"].tolist()))
+    out["q6"] = (int(h["EventDate"].min()), int(h["EventDate"].max()))
+    c7 = collections.Counter(adv[adv != 0].tolist())
+    out["q7"] = sorted(c7.items(), key=lambda kv: (-kv[1], kv[0]))
+    u8: dict = collections.defaultdict(set)
+    for r, u in zip(h["RegionID"].tolist(), h["UserID"].tolist()):
+        u8[r].add(u)
+    out["q8"] = sorted(((k, len(v)) for k, v in u8.items()),
+                       key=lambda kv: (-kv[1], kv[0]))[:10]
+    g9: dict = {}
+    for r, a, w, u in zip(h["RegionID"].tolist(), adv.tolist(),
+                          h["ResolutionWidth"].tolist(),
+                          h["UserID"].tolist()):
+        st = g9.setdefault(r, [0, 0, 0, set()])
+        st[0] += a
+        st[1] += 1
+        st[2] += w
+        st[3].add(u)
+    out["q9"] = [
+        (r, st[0], st[1], st[2] / st[1], len(st[3]))
+        for r, st in sorted(g9.items(),
+                            key=lambda kv: (-kv[1][1], kv[0]))[:10]
+    ]
+    u10: dict = collections.defaultdict(set)
+    u11: dict = collections.defaultdict(set)
+    for m, ph, u in zip(models, h["MobilePhone"].tolist(),
+                        h["UserID"].tolist()):
+        if m != b"":
+            u10[m].add(u)
+            u11[(ph, m)].add(u)
+    out["q10"] = sorted(((k, len(v)) for k, v in u10.items()),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+    out["q11"] = sorted(((k, len(v)) for k, v in u11.items()),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+    c12 = collections.Counter(p for p in phrases if p != b"")
+    out["q12"] = sorted(c12.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+    u13: dict = collections.defaultdict(set)
+    for p, u in zip(phrases, h["UserID"].tolist()):
+        if p != b"":
+            u13[p].add(u)
+    out["q13"] = sorted(((k, len(v)) for k, v in u13.items()),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+
+    urls = np.array(data.dicts["URL"].values + [b""],
+                    dtype=object)[h["URL"]]
+    titles = np.array(data.dicts["Title"].values + [b""],
+                      dtype=object)[h["Title"]]
+    c14 = collections.Counter(
+        (e, p) for e, p in zip(h["SearchEngineID"].tolist(), phrases)
+        if p != b"")
+    out["q14"] = sorted(
+        ((k, v) for k, v in c14.items()),
+        key=lambda kv: (-kv[1], kv[0][0], kv[0][1]))[:10]
+    c15 = collections.Counter(h["UserID"].tolist())
+    out["q15"] = sorted(c15.items(),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+    c16 = collections.Counter(zip(h["UserID"].tolist(), phrases))
+    out["q16"] = sorted(c16.items(),
+                        key=lambda kv: (-kv[1], kv[0][0], kv[0][1]))[:10]
+    # q17: LIMIT without ORDER BY — the full group->count map; the
+    # verifier checks the returned rows are a correct subset
+    out["q17"] = dict(c16)
+    minutes = ((h["EventTime"] // 60_000_000) % 60).tolist()
+    c18 = collections.Counter(
+        zip(h["UserID"].tolist(), minutes, phrases))
+    out["q18"] = sorted(
+        c18.items(),
+        key=lambda kv: (-kv[1], kv[0][0], kv[0][1], kv[0][2]))[:10]
+    out["q19"] = [u for u in h["UserID"].tolist()
+                  if u == 435090932899640449]
+    googley = np.array([b"google" in u for u in urls])
+    out["q20"] = int(googley.sum())
+    g21: dict = {}
+    for u, p, g in zip(urls, phrases, googley):
+        if g and p != b"":
+            st = g21.setdefault(p, [u, 0])
+            st[0] = min(st[0], u)
+            st[1] += 1
+    out["q21"] = sorted(((k, v[0], v[1]) for k, v in g21.items()),
+                        key=lambda kv: (-kv[2], kv[0]))[:10]
+
+    g22: dict = {}
+    for u, t, p, uid in zip(urls, titles, phrases,
+                            h["UserID"].tolist()):
+        if p == b"" or b"Google" not in t or b".google." in u:
+            continue
+        st = g22.setdefault(p, [u, t, 0, set()])
+        st[0] = min(st[0], u)
+        st[1] = min(st[1], t)
+        st[2] += 1
+        st[3].add(uid)
+    out["q22"] = sorted(
+        ((k, v[0], v[1], v[2], len(v[3])) for k, v in g22.items()),
+        key=lambda r: (-r[3], r[0]))[:10]
+
+    ev = h["EventTime"].tolist()
+    # q23 (SELECT * ... ORDER BY EventTime LIMIT 10): the verifier needs
+    # the time-ordered prefix boundary + the matching rows' WatchIDs
+    # per time (ties make exact row order free)
+    wl = h["WatchID"].tolist()
+    g23 = sorted((e, w) for e, w, g in zip(ev, wl, googley) if g)[:10]
+    t23 = {e for e, _w in g23}
+    by_time: dict = {e: set() for e in t23}
+    for e, w, g in zip(ev, wl, googley):  # one pass over match rows
+        if g and e in t23:
+            by_time[e].add(w)
+    out["q23"] = {"times": [e for e, _w in g23],
+                  "rows_by_time": by_time}
+    nonempty = [(e, p) for e, p in zip(ev, phrases) if p != b""]
+    # q24 orders by EventTime only: verify the (time, phrase)
+    # MULTISET of the first 10 — ties make the exact order free
+    out["q24"] = sorted(nonempty)[:10]
+    out["q25"] = sorted((p for _e, p in nonempty))[:10]
+    out["q26"] = sorted(nonempty)[:10]
+
+    g27: dict = {}
+    for cid, u in zip(h["CounterID"].tolist(), urls):
+        if u == b"":
+            continue
+        st = g27.setdefault(cid, [0, 0])
+        st[0] += len(u)
+        st[1] += 1
+    out["q27"] = sorted(
+        ((cid, s / n, n) for cid, (s, n) in g27.items() if n > 4),
+        key=lambda r: (-r[1], r[0]))[:25]
+
+    referers = np.array(
+        data.dicts["Referer"].values + [b""], dtype=object
+    )[h["Referer"]]
+
+    def _host_cutwww(v: bytes) -> bytes:
+        s = v.split(b"://", 1)[-1]
+        s = s.split(b"/", 1)[0].split(b"?", 1)[0]
+        return s[4:] if s.startswith(b"www.") else s
+
+    g28: dict = {}
+    for r in referers:
+        if r == b"":
+            continue
+        st = g28.setdefault(_host_cutwww(r), [0, 0, None])
+        st[0] += len(r)
+        st[1] += 1
+        st[2] = r if st[2] is None else min(st[2], r)
+    out["q28"] = sorted(
+        ((k, s / c, c, m) for k, (s, c, m) in g28.items() if c > 4),
+        key=lambda r: (-r[1], r[0]))[:25]
+
+    rw = h["ResolutionWidth"].astype(np.int64)
+    out["q29"] = [int((rw + k).sum()) for k in range(90)]
+
+    mask30 = np.array([p != b"" for p in phrases])
+    g30: dict = {}
+    for e, ip, rfr, w in zip(h["SearchEngineID"][mask30].tolist(),
+                             h["ClientIP"][mask30].tolist(),
+                             h["IsRefresh"][mask30].tolist(),
+                             h["ResolutionWidth"][mask30].tolist()):
+        st = g30.setdefault((e, ip), [0, 0, 0])
+        st[0] += 1
+        st[1] += rfr
+        st[2] += w
+    out["q30"] = sorted(
+        ((k, c, r, s / c) for k, (c, r, s) in g30.items()),
+        key=lambda r: (-r[1], r[0][0], r[0][1]))[:10]
+
+    def _watch_ip(masked: np.ndarray):
+        g: dict = {}
+        for wid, ip, rfr, w in zip(
+                h["WatchID"][masked].tolist(),
+                h["ClientIP"][masked].tolist(),
+                h["IsRefresh"][masked].tolist(),
+                h["ResolutionWidth"][masked].tolist()):
+            st = g.setdefault((wid, ip), [0, 0, 0])
+            st[0] += 1
+            st[1] += rfr
+            st[2] += w
+        return sorted(
+            ((k, c, r, s / c) for k, (c, r, s) in g.items()),
+            key=lambda r: (-r[1], r[0][0], r[0][1]))[:10]
+
+    out["q31"] = _watch_ip(mask30)
+    out["q32"] = _watch_ip(np.ones(n, dtype=bool))
+
+    c33 = collections.Counter(u for u in urls)
+    out["q33"] = sorted(c33.items(),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+    c34 = collections.Counter(zip(h["UserID"].tolist(), urls))
+    out["q34"] = sorted(
+        c34.items(), key=lambda kv: (-kv[1], kv[0][0], kv[0][1]))[:10]
+    c35 = collections.Counter(h["ClientIP"].tolist())
+    out["q35"] = sorted(c35.items(),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+
+    d_lo = int(np.datetime64("2013-07-01", "D").astype(np.int32))
+    d_hi = int(np.datetime64("2013-07-31", "D").astype(np.int32))
+    site = ((h["CounterID"] == 62) & (h["EventDate"] >= d_lo)
+            & (h["EventDate"] <= d_hi))
+    m36 = (site & (h["DontCountHits"] == 0) & (h["IsRefresh"] == 0)
+           & np.array([u != b"" for u in urls]))
+    c36 = collections.Counter(u for u in urls[m36])
+    out["q36"] = sorted(c36.items(),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+    m37 = (site & (h["DontCountHits"] == 0) & (h["IsRefresh"] == 0)
+           & np.array([t != b"" for t in titles]))
+    c37 = collections.Counter(t for t in titles[m37])
+    out["q37"] = sorted(c37.items(),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+    m38 = (site & (h["IsRefresh"] == 0) & (h["IsLink"] != 0)
+           & (h["IsDownload"] == 0))
+    c38 = collections.Counter(u for u in urls[m38])
+    out["q38"] = sorted(c38.items(),
+                        key=lambda kv: (-kv[1], kv[0]))[:10]
+
+    m39 = site & (h["IsRefresh"] == 0)
+    c39 = collections.Counter(
+        (int(ts), int(se), int(ad),
+         r if (se == 0 and ad == 0) else b"", u)
+        for ts, se, ad, r, u in zip(
+            h["TraficSourceID"][m39].tolist(),
+            h["SearchEngineID"][m39].tolist(),
+            h["AdvEngineID"][m39].tolist(),
+            referers[m39], urls[m39]))
+    out["q39"] = sorted(
+        c39.items(),
+        key=lambda kv: (-kv[1],) + kv[0][:3] + (kv[0][3], kv[0][4])
+    )[:10]
+
+    m40 = (site & (h["IsRefresh"] == 0)
+           & np.isin(h["TraficSourceID"], (-1, 6))
+           & (h["RefererHash"] == REFERERHASH_HOT))
+    c40 = collections.Counter(
+        zip(h["URLHash"][m40].tolist(), h["EventDate"][m40].tolist()))
+    out["q40"] = sorted(
+        c40.items(), key=lambda kv: (-kv[1], kv[0][0], kv[0][1]))[:10]
+
+    m41 = (site & (h["IsRefresh"] == 0) & (h["DontCountHits"] == 0)
+           & (h["URLHash"] == URLHASH_HOT))
+    c41 = collections.Counter(
+        zip(h["WindowClientWidth"][m41].tolist(),
+            h["WindowClientHeight"][m41].tolist()))
+    out["q41"] = sorted(
+        c41.items(), key=lambda kv: (-kv[1], kv[0][0], kv[0][1]))[:10]
+
+    d14 = int(np.datetime64("2013-07-14", "D").astype(np.int32))
+    d15 = int(np.datetime64("2013-07-15", "D").astype(np.int32))
+    m42 = ((h["CounterID"] == 62) & (h["EventDate"] >= d14)
+           & (h["EventDate"] <= d15) & (h["IsRefresh"] == 0)
+           & (h["DontCountHits"] == 0))
+    c42 = collections.Counter(
+        (h["EventTime"][m42] // 60_000_000).tolist())
+    out["q42"] = sorted(c42.items())[:10]
+    return out
 
 
 def _days(s: str) -> int:
@@ -278,3 +704,209 @@ def q33_q36_answers(data: ClickBenchData) -> dict[str, list]:
         site &= h["URL"] != empty
     return {"q33": _top_urls(h["URL"], data.dicts),
             "q36": _top_urls(h["URL"][site], data.dicts)}
+
+def run_clickbench(rows: int = 100_000, queries=None, iterations: int = 1,
+                   seed: int = 42, verify: bool = True,
+                   device: "str | None" = None):
+    """Plan and execute the query set through the port's default routing
+    (``execute_plan``; whole-plan fusion at the default row count) on
+    ``device`` (CUDA unless the caller names another); optionally verify
+    each result against ``reference_answers``. Returns
+    [(name, best_seconds, result_rows)]."""
+    import time
+
+    from ydb_tpu_torch.engine.scan import ColumnSource
+    from ydb_tpu_torch.plan import Database, execute_plan, to_host
+    from ydb_tpu_torch.sql.parser import parse
+    from ydb_tpu_torch.sql.planner import Catalog, plan_select_full
+
+    data = ClickBenchData(rows=rows, seed=seed)
+    db = Database(
+        sources={"hits": ColumnSource(data.hits, HITS_SCHEMA, data.dicts)},
+        dicts=data.dicts, device=device,
+    )
+    catalog = Catalog(schemas={"hits": HITS_SCHEMA},
+                      primary_keys={"hits": ("WatchID",)},
+                      dicts=data.dicts)
+    want = reference_answers(data) if verify else {}
+    names = queries or sorted(QUERIES, key=lambda q: int(q[1:]))
+    results = []
+    for name in names:
+        pq = plan_select_full(parse(QUERIES[name]), catalog)
+        plan = pq.plan
+        out = to_host(execute_plan(plan, db))  # first run: builds
+        if verify:
+            _verify(name, out, want[name], data, pq)
+        best = float("inf")
+        for _ in range(max(1, iterations)):
+            t0 = time.monotonic()
+            out = to_host(execute_plan(plan, db))
+            best = min(best, time.monotonic() - t0)
+        results.append((name, best, out.num_rows))
+    return results
+
+
+def _verify(name: str, out, want, data, pq=None) -> None:
+    def ints(col):
+        return [int(v) for v in np.asarray(out.cols[col][0])]
+
+    def strs(col):
+        src = pq.dict_aliases.get(col, col) if pq is not None else col
+        return data.dicts[src].decode(np.asarray(out.cols[col][0]))
+
+    if name in ("q0", "q1"):
+        assert ints("c")[0] == want, (name, ints("c"), want)
+    elif name == "q2":
+        s, c, w = want
+        assert ints("s")[0] == s and ints("c")[0] == c
+        assert abs(float(out.cols["w"][0][0]) - w) < 1e-9
+    elif name == "q3":
+        assert abs(float(out.cols["u"][0][0]) - want) < 1e-9
+    elif name in ("q4", "q5"):
+        col = "u" if name == "q4" else "p"
+        assert ints(col)[0] == want
+    elif name == "q6":
+        assert (ints("lo")[0], ints("hi")[0]) == want
+    elif name == "q7":
+        got = list(zip(ints("AdvEngineID"), ints("c")))
+        assert got == want, (name, got[:5], want[:5])
+    elif name == "q8":
+        got = list(zip(ints("RegionID"), ints("u")))
+        assert got == want, (name, got[:5], want[:5])
+    elif name == "q9":
+        got = list(zip(ints("RegionID"), ints("s"), ints("c"),
+                       [float(v) for v in np.asarray(out.cols["w"][0])],
+                       ints("u")))
+        assert len(got) == len(want)
+        for (gr, gs, gc, gw, gu), (wr, ws, wc, ww, wu) in zip(got, want):
+            assert (gr, gs, gc, gu) == (wr, ws, wc, wu)
+            assert abs(gw - ww) < 1e-9
+    elif name == "q10":
+        got = list(zip(strs("MobilePhoneModel"), ints("u")))
+        assert got == want
+    elif name == "q11":
+        got = list(zip(
+            zip(ints("MobilePhone"), strs("MobilePhoneModel")),
+            ints("u")))
+        got = [((a, b), u) for (a, b), u in got]
+        assert got == want
+    elif name in ("q12", "q13"):
+        col = "c" if name == "q12" else "u"
+        got = list(zip(strs("SearchPhrase"), ints(col)))
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q14":
+        got = [((e, p), c) for e, p, c in zip(
+            ints("SearchEngineID"), strs("SearchPhrase"), ints("c"))]
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q15":
+        got = list(zip(ints("UserID"), ints("c")))
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q16":
+        got = [((u, p), c) for u, p, c in zip(
+            ints("UserID"), strs("SearchPhrase"), ints("c"))]
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q17":
+        # LIMIT without ORDER BY: any 10 (group, count) rows are valid
+        # as long as each is a REAL group with the right count
+        got = [((u, p), c) for u, p, c in zip(
+            ints("UserID"), strs("SearchPhrase"), ints("c"))]
+        assert len(got) == min(10, len(want))
+        assert len({k for k, _c in got}) == len(got), "dup groups"
+        for k, c in got:
+            assert want.get(k) == c, (name, k, c, want.get(k))
+    elif name == "q18":
+        got = [((u, m, p), c) for u, m, p, c in zip(
+            ints("UserID"), ints("m"), strs("SearchPhrase"),
+            ints("c"))]
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q19":
+        assert ints("UserID") == want if out.num_rows else want == []
+    elif name == "q20":
+        assert ints("c")[0] == want, (name, ints("c"), want)
+    elif name == "q21":
+        got = list(zip(strs("SearchPhrase"), strs("u"), ints("c")))
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q22":
+        got = list(zip(strs("SearchPhrase"), strs("u"), strs("t"),
+                       ints("c"), ints("uu")))
+        assert got == want, (name, got[:2], want[:2])
+    elif name == "q23":
+        # SELECT * ordered by EventTime with free ties: the times must
+        # be the true first-10, each row a real matching row
+        got_times = ints("EventTime")
+        assert got_times == want["times"], (name, got_times)
+        for e, w in zip(got_times, ints("WatchID")):
+            assert w in want["rows_by_time"][e], (name, e, w)
+    elif name == "q24":
+        got = sorted(zip(ints("EventTime"), strs("SearchPhrase")))
+        # tie-tolerant: same multiset of (time, phrase), time-ordered
+        assert [e for e, _ in got] == [e for e, _ in want] and \
+            sorted(got) == sorted(want), (name, got[:3], want[:3])
+    elif name == "q25":
+        got = strs("SearchPhrase")
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q26":
+        got = list(zip(ints("EventTime"), strs("SearchPhrase")))
+        assert got == want, (name, got[:3], want[:3])
+    elif name in ("q27", "q28"):
+        kcol = "CounterID" if name == "q27" else "hkey"
+        keys = ints(kcol) if name == "q27" else strs(kcol)
+        got = list(zip(keys,
+                       [float(v) for v in
+                        np.asarray(out.cols["l"][0])],
+                       ints("c")))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert (g[0], g[2]) == (w[0], w[2]), (name, g, w)
+            assert abs(g[1] - w[1]) < 1e-9, (name, g[1], w[1])
+        if name == "q28":
+            assert strs("m") == [w[3] for w in want]
+    elif name == "q29":
+        got = [ints(f"s{k}")[0] for k in range(90)]
+        assert got == want, (name, got[:4], want[:4])
+    elif name in ("q30", "q31", "q32"):
+        kcol = "SearchEngineID" if name == "q30" else "WatchID"
+        got = list(zip(zip(ints(kcol), ints("ClientIP")),
+                       ints("c"), ints("r"),
+                       [float(v) for v in np.asarray(out.cols["w"][0])]))
+        assert len(got) == len(want)
+        for (gk, gc, gr, gw), (wk, wc, wr, ww) in zip(got, want):
+            assert (gk, gc, gr) == (wk, wc, wr), (name, gk, wk)
+            assert abs(gw - ww) < 1e-9, (name, gw, ww)
+    elif name == "q33":
+        got = list(zip(strs("URL"), ints("c")))
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q34":
+        got = [((u, l), c) for u, l, c in zip(
+            ints("UserID"), strs("URL"), ints("c"))]
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q35":
+        got = list(zip(ints("ClientIP"), ints("c")))
+        assert got == want, (name, got[:3], want[:3])
+        assert ints("c1") == [ip - 1 for ip, _c in want]
+        assert ints("c2") == [ip - 2 for ip, _c in want]
+        assert ints("c3") == [ip - 3 for ip, _c in want]
+    elif name in ("q36", "q37", "q38"):
+        col = "Title" if name == "q37" else "URL"
+        got = list(zip(strs(col), ints("pv")))
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q39":
+        got = [((ts, se, ad, s, d), c) for ts, se, ad, s, d, c in zip(
+            ints("TraficSourceID"), ints("SearchEngineID"),
+            ints("AdvEngineID"), strs("src"), strs("dst"),
+            ints("pv"))]
+        assert got == want, (name, got[:2], want[:2])
+    elif name == "q40":
+        got = [((u, d), c) for u, d, c in zip(
+            ints("URLHash"), ints("EventDate"), ints("pv"))]
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q41":
+        got = [((w_, h_), c) for w_, h_, c in zip(
+            ints("WindowClientWidth"), ints("WindowClientHeight"),
+            ints("pv"))]
+        assert got == want, (name, got[:3], want[:3])
+    elif name == "q42":
+        got = list(zip(ints("minute"), ints("pv")))
+        assert got == want, (name, got[:3], want[:3])
+    else:
+        raise KeyError(name)
