@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--sf 10] [--sql-sf SF] [--hits-rows 10000000]
+                          [--tpcds-sf 0.1] [--storage-sql-sf 1]
                           [--json-out PATH]
                           [--baseline-source OLD_grouped_sum.cu]
 
@@ -90,6 +91,47 @@ Phases, in order; any failure exits non-zero before the final line:
    q6, ClickBench q33 fused and walked at 16K, 64K, 131K and 1M rows,
    ``FUSE_MAX_ROWS`` raised in-process for the last point only; one
    ``{"sweep_fusion": ...}`` line each).
+
+8. TPC-DS: the 70 queries of ``workload/tpcds.py`` at ``--tpcds-sf``
+   (0.1), seed 7, every table on the card, each through the default
+   routing (DQ, fusion, walk) and through the walk (``use_dq=False``,
+   fusion off). Each result must equal the numpy ``reference_answers``
+   (``verify_result``) and the walk's. One ``{"tpcds": ...}`` line per
+   query: the executor that answered, first and warm seconds of each
+   routing, peak device memory, kernel launches.
+9. The ColumnShard storage path at full size (``engine/shard.py``). Phase
+   3's lineitem is written into a ``ColumnShard`` over a ``DirBlobStore``
+   in a temp directory with ``ColumnShard.write``/``commit`` in 1<<20-row
+   chunks (``bench.py:run_ooc``'s ShardConfig: compaction off, 1<<18-row
+   portion chunks and scan blocks): ingest rows/s, bytes on disk. Q1 and
+   Q6 through ``shard.scan``: cold (resident tier and block cache
+   emptied), three warm runs after every portion was promoted (the
+   resident budget keeps what fits), then with the morsel pipeline off,
+   statistics off and the resident tier off (block cache on, twice). Each
+   scan equals numpy and is bit-identical to the first; one
+   ``{"storage_scan": ...}`` line each with rows/s, seconds per stage
+   (read/merge/stage/compute), pruning counters, resident portions, rows
+   and share, pipeline counters, peak device memory (and the busy share
+   of the third warm run). Then Q6 under an ``l_orderkey`` range must
+   skip portions and equal numpy; a second shard booted from the same
+   directory (``ColumnShard.boot``) must hold the same portions and read
+   Q6 back bit for bit. Phase 3's hits go into a shard too, and q33/q36
+   through ``shard.scan`` on the fused and the per-aggregate lowering
+   must equal phase 3's answers on the dense tier over more than 512
+   groups; the CUDA kernels' launches are counted from zero over these
+   four scans (``storage_launches``; each kernel must launch). One more
+   run of each of the four scans then holds every kernel call against
+   its plain version on the same inputs (one ``{"storage_kernel_check":
+   ...}`` line each; these launches are not counted). Last, the 22 TPC-H
+   queries at ``--storage-sql-sf`` (1) over all eight tables, each split
+   over two shards by primary-key range and served as a
+   ``MultiShardStreamSource`` with a ``DeviceBlockCache``, through the
+   default routing (DQ takes one partition per shard) and the walk, each
+   equal to the same query over host ``ColumnSource``s; one
+   ``{"storage_sql": ...}`` line per query with the block cache's hits
+   and misses. The shards' resident tier is off in this section, so
+   table scans of the walk and of fused plans read through the block
+   cache (with it on, the cache stands aside).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -326,6 +368,12 @@ def kernel_phase(ck, dev) -> dict:
     for ng in (513, 1749, 2048):
         for dtype in (torch.int32, torch.float32):
             cases.append((BLOCK_ROWS, ng, dtype, "random", "random", aligned))
+    # phase 9's GROUP BY URL shard scans: scan blocks of
+    # STORAGE_BLOCK_ROWS over the URL dictionary's 1,745 groups
+    for dtype in (torch.int32, torch.float32):
+        for gk in ("random", "out_of_range"):
+            cases.append((STORAGE_BLOCK_ROWS, 1745, dtype, gk, "random",
+                          aligned))
     for dtype in (torch.int32, torch.float32):
         vk = "int_floats" if dtype == torch.float32 else "random"
         cases += [
@@ -930,7 +978,7 @@ DQ_SLOW_FIRST_S = 2.0
 #: the DQ phase's warm and profiled runs (beyond each query's first,
 #: checked run) are made only while the script's clock, with them, stays
 #: under this: the whole run then ends well inside its time limit
-DQ_EXTRAS_BUDGET_S = 650.0
+DQ_EXTRAS_BUDGET_S = 450.0
 
 #: the DQ layers that ``dq_instruments(timed=True)`` times, by the port
 #: function that does each layer's work (module or class, attribute)
@@ -1627,6 +1675,553 @@ def cutoff_sweep(dev, tp, cb) -> list:
     return rows
 
 
+# ---------------- phase 8: TPC-DS ----------------
+
+
+#: TPC-DS scale and seed of phase 8 (the CPU tests' seed, at the scale
+#: whose numpy answers take seconds)
+TPCDS_SF = 0.1
+TPCDS_SEED = 7
+
+
+def tpcds_phase(dev, ck, sf: float = TPCDS_SF) -> list:
+    """Phase 8: the 70 TPC-DS queries at ``sf``, every table on the card,
+    through the default routing and through the walk (``use_dq=False``,
+    fusion pinned off). Each result must equal the numpy answers
+    (``verify_result``) and the walk's; one ``{"tpcds": ...}`` line per
+    query."""
+    from ydb_tpu_torch.engine.scan import ColumnSource
+    from ydb_tpu_torch.plan import Database
+    from ydb_tpu_torch.sql.planner import Catalog
+    from ydb_tpu_torch.workload import tpcds
+
+    t_phase = time.perf_counter()
+    data = tpcds.TpcdsData(sf=sf, seed=TPCDS_SEED)
+    names = sorted(tpcds.QUERIES, key=lambda q: int(q[1:]))
+    t0 = time.perf_counter()
+    want = tpcds.reference_answers(data, names)
+    answers_s = time.perf_counter() - t0
+    db = Database(
+        sources={t: ColumnSource(c, tpcds.SCHEMAS[t], data.dicts)
+                 .to_device(dev) for t, c in data.tables.items()},
+        dicts=data.dicts, device=dev)
+    catalog = Catalog(schemas=dict(tpcds.SCHEMAS),
+                      primary_keys=dict(tpcds.PRIMARY_KEYS),
+                      dicts=data.dicts)
+    log(f"TPC-DS sf {sf} seed {TPCDS_SEED}: "
+        f"{sum(len(next(iter(c.values()))) for c in data.tables.values())} "
+        f"rows in {len(data.tables)} tables on the card; numpy answers "
+        f"{answers_s:.1f} s")
+    rows = []
+    for name in names:
+        sql = tpcds.QUERIES[name]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pq = plan_sql(sql, db, catalog)
+        ck.reset_launches()
+        with routed() as seen:
+            t0 = time.perf_counter()
+            res = run_sql(pq, db)
+            first_s = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        run_sql(pq, db)
+        warm_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        tpcds.verify_result(name, res, want[name], data, pq)
+        with fusion_force(False):
+            wpq = plan_sql(sql, db, catalog, use_dq=False)
+            with routed() as wseen:
+                t0 = time.perf_counter()
+                walk = run_sql(wpq, db, False)
+                walk_first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            run_sql(wpq, db, False)
+            walk_warm_s = time.perf_counter() - t0
+        assert not wseen, (name, wseen)
+        tpcds.verify_result(name, walk, want[name], data, wpq)
+        same_result(res, walk, name)
+        row = {"query": name, "sf": sf,
+               "executor": seen[-1] if seen else "walk",
+               "rows": res.num_rows, "first_s": first_s, "warm_s": warm_s,
+               "walk_first_s": walk_first_s, "walk_warm_s": walk_warm_s,
+               "peak_device_bytes": peak, "tables_bytes": base,
+               "query_peak_bytes": peak - base, "launches": launches,
+               "equals_numpy": True, "equals_walk": True}
+        rows.append(row)
+        emit({"tpcds": row})
+    drop_fused(db)
+    del db
+    torch.cuda.empty_cache()
+    by = collections.Counter(r["executor"] for r in rows)
+    log(f"TPC-DS: {len(rows)} queries equal the numpy answers and the "
+        f"walk; executors {dict(by)}; first runs summed "
+        f"{sum(r['first_s'] for r in rows):.2f} s, walk "
+        f"{sum(r['walk_first_s'] for r in rows):.2f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+# ---------------- phase 9: the ColumnShard storage path ----------------
+
+
+#: rows per ``ColumnShard.write``/``commit`` of phase 9's ingest
+INGEST_CHUNK_ROWS = 1 << 20
+#: portion chunk and scan block rows of phase 9's shards
+#: (``bench.py:run_ooc``'s ShardConfig)
+STORAGE_BLOCK_ROWS = 1 << 18
+#: TPC-H scale of phase 9's sharded SQL
+STORAGE_SQL_SF = 1.0
+
+
+def storage_config():
+    """``bench.py:run_ooc``'s ShardConfig: compaction off, 1<<18-row
+    portion chunks and scan blocks."""
+    from ydb_tpu_torch.engine.shard import ShardConfig
+
+    return ShardConfig(compact_portion_threshold=10 ** 9,
+                       scan_block_rows=STORAGE_BLOCK_ROWS,
+                       portion_chunk_rows=STORAGE_BLOCK_ROWS)
+
+
+def ingest(shard, cols) -> dict:
+    """``cols`` into ``shard`` in ``INGEST_CHUNK_ROWS``-row write/commit
+    pairs; rows/s and bytes on disk."""
+    n = len(next(iter(cols.values())))
+    t0 = time.perf_counter()
+    for lo in range(0, n, INGEST_CHUNK_ROWS):
+        wid = shard.write({k: v[lo:lo + INGEST_CHUNK_ROWS]
+                           for k, v in cols.items()})
+        shard.commit([wid])
+    seconds = time.perf_counter() - t0
+    shard.resident.drain(timeout=300)
+    stored = sum(shard.store.size(m.blob_id)
+                 for m in shard.visible_portions())
+    return {"rows": n, "seconds": seconds, "rows_per_s": n / seconds,
+            "portions": len(shard.visible_portions()),
+            "bytes_on_disk": stored}
+
+
+def fill_resident(shard) -> float:
+    """Promote every visible portion from the blob store, as the eager
+    write path and the heat path do (``promote_async``, at most
+    ``MAX_INFLIGHT`` at a time); the budget evicts the coldest. Seconds
+    taken."""
+    from ydb_tpu_torch.engine.resident import portion_loader
+
+    res = shard.resident
+    assert res.enabled(), "the resident tier is off"
+    t0 = time.perf_counter()
+    for m in shard.visible_portions():
+        while not res.promote_async(m.portion_id, m.num_rows,
+                                    portion_loader(shard, m)):
+            res.drain(timeout=300)
+    res.drain(timeout=300)
+    return time.perf_counter() - t0
+
+
+class toggles:
+    """Statistics, morsel pipeline and resident tier forced for a block
+    (None leaves a knob to the environment), restored after."""
+
+    def __init__(self, stats=None, pipeline=None, resident=None):
+        self.want = {"stats": stats, "pipeline": pipeline,
+                     "resident": resident}
+
+    def _mods(self):
+        from ydb_tpu_torch import stats
+        from ydb_tpu_torch.engine import resident, stream_sched
+
+        return {"stats": (stats, "STATS_FORCE"),
+                "pipeline": (stream_sched, "PIPELINE_FORCE"),
+                "resident": (resident, "RESIDENT_FORCE")}
+
+    def __enter__(self):
+        self.saved = {}
+        for k, (mod, attr) in self._mods().items():
+            self.saved[k] = getattr(mod, attr)
+            setattr(mod, attr, self.want[k])
+
+    def __exit__(self, *exc):
+        for k, (mod, attr) in self._mods().items():
+            setattr(mod, attr, self.saved[k])
+        return False
+
+
+def identical(got, want, what) -> None:
+    """Bit for bit: names, rows, validity and every value (floats too)."""
+    assert list(got.schema.names) == list(want.schema.names), what
+    assert got.num_rows == want.num_rows, what
+    for col in want.schema.names:
+        (gv, go), (wv, wo) = got.cols[col], want.cols[col]
+        assert np.array_equal(go, wo), (what, col, "validity")
+        assert gv.dtype == wv.dtype and \
+            np.asarray(gv)[wo].tobytes() == np.asarray(wv)[wo].tobytes(), \
+            (what, col)
+
+
+def shard_scan(shard, program, n_rows, dev, label, busy=False) -> tuple:
+    """One synced ``shard.scan``: its result and a row of what it took.
+    Promotions an earlier scan queued finish before the clock starts;
+    those this scan queued (heat) are counted after it, once done."""
+    shard.resident.drain(timeout=300)
+    before = shard.resident.snapshot()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = shard.scan(program)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    shard.resident.drain(timeout=300)
+    res = shard.resident.snapshot()
+    row = {"mode": label, "seconds": seconds, "rows_per_s": n_rows / seconds,
+           "stages_s": shard.last_scan_stages,
+           "pruning": shard.last_scan_pruning,
+           "resident_portions": shard.last_scan_resident["portions"],
+           "resident_rows": shard.last_scan_resident["rows"],
+           "resident_share": shard.last_scan_resident["rows"] / max(n_rows,
+                                                                     1),
+           "resident_bytes": res["bytes"],
+           "promotions_queued": res["promotions"] - before["promotions"],
+           "evictions": res["evictions"] - before["evictions"],
+           "pipeline": shard.last_scan_pipeline,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+           "group_layout": list(
+               shard.last_scan_executor.partial.group_layout)}
+    if busy:
+        row.update(busy_share(lambda: shard.scan(program)))
+    return out, row
+
+
+def checked_kernel_calls(ck, run) -> dict:
+    """``run()`` with both kernel wrappers spied on; after it, every
+    call's result is held against the plain version on the same inputs
+    (int32 exact, float32 rtol 1e-5). Calls, their shapes and the
+    largest |kernel - plain| of each kernel."""
+    real = {"grouped_sum": ck.grouped_sum,
+            "grouped_sum_multi": ck.grouped_sum_multi}
+    plain = {"grouped_sum": ck.grouped_sum_plain,
+             "grouped_sum_multi": ck.grouped_sum_multi_plain}
+    calls = []
+
+    def spy(name):
+        def call(values, gid, num_groups):
+            got = real[name](values, gid, num_groups)
+            assert not torch.cuda.is_current_stream_capturing(), name
+            calls.append((name, values.clone(), gid.clone(), num_groups,
+                          got.clone()))
+            return got
+        return call
+
+    for name in real:
+        setattr(ck, name, spy(name))
+    try:
+        run()
+    finally:
+        for name, fn in real.items():
+            setattr(ck, name, fn)
+    torch.cuda.synchronize()
+    out = {name: {"calls": 0, "shapes": [], "max_abs_err": 0.0}
+           for name in real}
+    for name, values, gid, num_groups, got in calls:
+        want = plain[name](values, gid, num_groups)
+        label = f"{name} {tuple(values.shape)} {values.dtype} {num_groups}"
+        if values.dtype == torch.int32:
+            assert torch.equal(got, want), label
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                       msg=label)
+        row = out[name]
+        row["calls"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], (
+            got.double() - want.double()).abs().max().item())
+        shape = [list(values.shape), str(values.dtype), num_groups]
+        if shape not in row["shapes"]:
+            row["shapes"].append(shape)
+    return out
+
+
+def sharded_tpch(tp, root, dev, n_shards=2):
+    """Every table of ``tp`` split over ``n_shards`` ColumnShards by
+    primary-key range on ``DirBlobStore(root)``, served as
+    ``MultiShardStreamSource``s (as ``kqp/session.py:1428`` builds them)
+    in a Database with a ``DeviceBlockCache``; and a Database over host
+    ``ColumnSource``s of the same data."""
+    from ydb_tpu_torch.engine.blobs import DirBlobStore
+    from ydb_tpu_torch.engine.blockcache import DeviceBlockCache
+    from ydb_tpu_torch.engine.reader import MultiShardStreamSource
+    from ydb_tpu_torch.engine.scan import ColumnSource
+    from ydb_tpu_torch.engine.shard import ColumnShard
+    from ydb_tpu_torch.plan import Database
+    from ydb_tpu_torch.workload import tpch
+
+    store = DirBlobStore(root)
+    sources, by_table = {}, {}
+    t0 = time.perf_counter()
+    for t, cols in tp.tables.items():
+        pk = tpch.PRIMARY_KEYS[t][0]
+        keys = cols[pk]
+        cuts = np.quantile(keys, np.linspace(0, 1, n_shards + 1)[1:-1])
+        part = np.searchsorted(cuts, keys, side="right")
+        shs = []
+        for i in range(n_shards):
+            sh = ColumnShard(f"{t}/{i}", tp.schema(t), store, pk_column=pk,
+                             dicts=tp.dicts, config=storage_config(),
+                             device=dev)
+            m = part == i
+            for lo in range(0, int(m.sum()), INGEST_CHUNK_ROWS):
+                sel = np.flatnonzero(m)[lo:lo + INGEST_CHUNK_ROWS]
+                sh.commit([sh.write({k: v[sel] for k, v in cols.items()})])
+            shs.append(sh)
+        by_table[t] = shs
+        sources[t] = MultiShardStreamSource(shs, tp.schema(t), tp.dicts,
+                                            device=dev)
+    ingest_s = time.perf_counter() - t0
+    for shs in by_table.values():
+        for sh in shs:
+            sh.resident.drain(timeout=300)
+    db = Database(sources=sources, dicts=tp.dicts, device=dev,
+                  block_cache=DeviceBlockCache(device=dev))
+    host = Database(sources={t: ColumnSource(c, tp.schema(t), tp.dicts)
+                             for t, c in tp.tables.items()},
+                    dicts=tp.dicts, device=dev)
+    return db, host, {"ingest_s": ingest_s,
+                      "shards": sum(len(s) for s in by_table.values())}
+
+
+def storage_phase(dev, ck, tp, cb, sql_sf: float = STORAGE_SQL_SF,
+                  answers=None) -> dict:
+    """Phase 9: the ColumnShard storage path (see the module docstring).
+    ``tp`` holds phase 3's lineitem, ``cb`` its hits, ``answers`` phase
+    3's numpy Q1 and Q6 (computed here when None). Returns every
+    measurement; ``launches`` are the CUDA kernels' launches of the
+    counted ``GROUP BY URL`` shard scans."""
+    import shutil
+    import tempfile
+
+    from ydb_tpu_torch.engine.blobs import DirBlobStore
+    from ydb_tpu_torch.engine.shard import ColumnShard
+    from ydb_tpu_torch.ssa import kernels
+    from ydb_tpu_torch.ssa.ops import Op
+    from ydb_tpu_torch.ssa.program import Call, Col, FilterStep, Program, lit
+    from ydb_tpu_torch.workload import clickbench, tpch
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    li = tp.tables["lineitem"]
+    n_li = len(li["l_orderkey"])
+    cutoff = tpch_days("1998-12-01") - 90
+    d0, d1 = tpch_days("1994-01-01"), tpch_days("1995-01-01")
+    want1, want6 = answers or (numpy_q1(li, cutoff), numpy_q6(li, d0, d1))
+    q1, q6 = tpch.q1_program(), tpch.q6_program()
+    tmp = tempfile.mkdtemp(prefix="ydb_tpu_torch_storage_")
+    try:
+        # 1. ingest SF-10 lineitem
+        shard = ColumnShard("li", tpch.LINEITEM_SCHEMA, DirBlobStore(tmp),
+                            dicts=tp.dicts, config=storage_config(),
+                            device=dev)
+        out["ingest"] = ingest(shard, li)
+        out["ingest"]["resident_after_ingest"] = shard.resident.snapshot()
+        log(f"storage: ingested {n_li} lineitem rows at "
+            f"{out['ingest']['rows_per_s']:.0f} rows/s, "
+            f"{out['ingest']['portions']} portions, "
+            f"{out['ingest']['bytes_on_disk']} bytes on disk")
+
+        # 2. Q1/Q6 in every mode, each bit-identical to the others
+        scans, firsts = [], {}
+
+        def scan(name, label, busy=False):
+            prog, n = (q1, n_li) if name == "q1" else (q6, n_li)
+            res, row = shard_scan(shard, prog, n, dev, label, busy)
+            row["query"] = name
+            if name == "q1":
+                check_q1(res, want1)
+            else:
+                assert int(res.cols["revenue"][0][0]) == want6
+            if name in firsts:
+                identical(res, firsts[name], f"{name} {label}")
+            else:
+                firsts[name] = res
+            scans.append(row)
+            emit({"storage_scan": row})
+            return row
+
+        for name in ("q1", "q6"):
+            shard.resident.clear()
+            shard.block_cache.clear()
+            scan(name, "cold")
+        fill_s = fill_resident(shard)
+        out["resident_fill_s"] = fill_s
+        out["resident_after_fill"] = shard.resident.snapshot()
+        for name in ("q1", "q6"):
+            for i in range(3):
+                scan(name, f"warm{i + 1}", busy=(i == 2))
+        for label, kw in (("pipeline_off", {"pipeline": False}),
+                          ("stats_off", {"stats": False}),
+                          ("resident_off", {"resident": False})):
+            with toggles(**kw):
+                for name in ("q1", "q6"):
+                    scan(name, label)
+                    if label == "resident_off":
+                        # a second run reads the block cache's entry
+                        scan(name, label + "_cached")
+        out["scans"] = scans
+
+        # 3. a selective scan skips portions
+        hi = int(li["l_orderkey"].max()) // 10
+        sel_prog = Program((FilterStep(Call(Op.LT, Col("l_orderkey"),
+                                            lit(hi))),) + tuple(q6.steps))
+        res, row = shard_scan(shard, sel_prog, n_li, dev, "selective")
+        m = li["l_orderkey"] < hi
+        want = numpy_q6({k: v[m] for k, v in li.items()}, d0, d1)
+        assert int(res.cols["revenue"][0][0]) == want
+        assert row["pruning"]["portions_skipped"] > 0, row["pruning"]
+        out["selective"] = row
+        emit({"storage_scan": row})
+
+        # 4. reboot from the blob store alone: every write reads back
+        t0 = time.perf_counter()
+        booted = ColumnShard.boot("li", tpch.LINEITEM_SCHEMA,
+                                  DirBlobStore(tmp), config=storage_config(),
+                                  device=dev)
+        boot_s = time.perf_counter() - t0
+        assert booted.snap == shard.snap
+        assert [m.to_json() for m in booted.visible_portions()] == \
+            [m.to_json() for m in shard.visible_portions()]
+        res, row = shard_scan(booted, q6, n_li, dev, "rebooted")
+        row["query"] = "q6"
+        identical(res, firsts["q6"], "q6 rebooted")
+        out["reboot"] = {"boot_s": boot_s, **row}
+        emit({"storage_scan": out["reboot"]})
+        del shard, booted
+        torch.cuda.empty_cache()
+
+        # 5. ClickBench hits: GROUP BY URL through shard.scan, counted
+        hits = ColumnShard("hits", clickbench.HITS_SCHEMA,
+                           DirBlobStore(tmp), dicts=cb.dicts,
+                           config=storage_config(), device=dev)
+        out["hits_ingest"] = ingest(hits, cb.hits)
+        n_hits = out["hits_ingest"]["rows"]
+        cb_answers = clickbench.q33_q36_answers(cb)
+        progs = {"q33": clickbench.q33_program(),
+                 "q36": clickbench.q36_program()}
+        for name in ("q33", "q36"):  # first runs: build the executors
+            hits.scan(progs[name])
+        hits.resident.drain(timeout=300)
+        ck.reset_launches()
+        cb_rows = []
+        for name, col in (("q33", "c"), ("q36", "pv")):
+            for lowering, fused in (("fused", True), ("peragg", False)):
+                kernels.FUSED_FORCE = fused
+                try:
+                    before = dict(ck.LAUNCHES)
+                    res, row = shard_scan(hits, progs[name], n_hits, dev,
+                                          f"{name}_{lowering}")
+                finally:
+                    kernels.FUSED_FORCE = None
+                row["launches"] = {k: ck.LAUNCHES[k] - before[k]
+                                   for k in before}
+                got = list(zip(cb.dicts["URL"].decode(res.cols["URL"][0]),
+                               (int(x) for x in res.cols[col][0])))
+                assert got == cb_answers[name], (name, lowering, got[:3])
+                assert row["group_layout"][0] == "dense" and \
+                    row["group_layout"][1] > 512, row["group_layout"]
+                cb_rows.append(row)
+                emit({"storage_scan": row})
+        launches = dict(ck.LAUNCHES)
+        for row in cb_rows:
+            k = ("grouped_sum_multi" if row["mode"].endswith("fused")
+                 else "grouped_sum")
+            assert row["launches"][k] > 0, row
+        out["clickbench"] = cb_rows
+        out["launches"] = launches
+        # the same four scans once more, every kernel call held against
+        # its plain version (after the count was read: not counted)
+        checks = []
+        for name in ("q33", "q36"):
+            for lowering, fused in (("fused", True), ("peragg", False)):
+                kernels.FUSED_FORCE = fused
+                try:
+                    got = checked_kernel_calls(
+                        ck, lambda: hits.scan(progs[name]))
+                finally:
+                    kernels.FUSED_FORCE = None
+                k = "grouped_sum_multi" if fused else "grouped_sum"
+                assert got[k]["calls"] > 0, (name, lowering, got)
+                row = {"mode": f"{name}_{lowering}", **got}
+                checks.append(row)
+                emit({"storage_kernel_check": row})
+        out["kernel_checks"] = checks
+        del hits
+        torch.cuda.empty_cache()
+
+        # 6. TPC-H SQL over sharded tables, the resident tier off so
+        # that scans read through the block cache
+        with toggles(resident=False):
+            out["sql"] = sharded_sql(sql_sf, os.path.join(tmp, "tpch"),
+                                     dev, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"storage phase: {out['seconds']:.1f} s; kernel launches of the "
+        f"counted GROUP BY URL shard scans {out['launches']}")
+    return out
+
+
+def sharded_sql(sql_sf, root, dev, out) -> list:
+    """Phase 9's last section: the 22 TPC-H queries over sharded tables
+    (``sharded_tpch``) by the default routing and the walk, each equal
+    to the same query over host sources; a row per query."""
+    from ydb_tpu_torch.sql.planner import Catalog
+    from ydb_tpu_torch.workload import tpch
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    sql_tp = tpch.TpchData(sf=sql_sf, seed=42)
+    db, host, built = sharded_tpch(sql_tp, root, dev)
+    out["sql_build"] = built
+    cache = db.block_cache
+    catalog = Catalog(schemas={t: sql_tp.schema(t)
+                               for t in sql_tp.tables},
+                      primary_keys=dict(tpch.PRIMARY_KEYS),
+                      dicts=sql_tp.dicts)
+    sql_rows = []
+    for name in sorted(TPCH, key=lambda q: int(q[1:])):
+        hits0, misses0 = cache.hits, cache.misses
+        hpq = plan_sql(TPCH[name], host, catalog)
+        t0 = time.perf_counter()
+        want = run_sql(hpq, host)
+        host_s = time.perf_counter() - t0
+        pq = plan_sql(TPCH[name], db, catalog)
+        with routed() as seen:
+            t0 = time.perf_counter()
+            got = run_sql(pq, db)
+            first_s = time.perf_counter() - t0
+        same_result(got, want, name)
+        with fusion_force(False):
+            wpq = plan_sql(TPCH[name], db, catalog, use_dq=False)
+            t0 = time.perf_counter()
+            walk = run_sql(wpq, db, False)
+            walk_s = time.perf_counter() - t0
+        same_result(walk, want, name)
+        row = {"query": name, "sf": sql_sf,
+               "executor": seen[-1] if seen else "walk",
+               "rows": got.num_rows, "first_s": first_s,
+               "walk_first_s": walk_s, "host_sources_s": host_s,
+               "equals_host_sources": True,
+               "block_cache_hits": cache.hits - hits0,
+               "block_cache_misses": cache.misses - misses0}
+        sql_rows.append(row)
+        emit({"storage_sql": row})
+    assert cache.hits > 0, "no scan was served by the block cache"
+    log(f"storage SQL: block cache {cache.hits} hits, {cache.misses} "
+        f"misses, {cache.nbytes} bytes held")
+    drop_fused(db)
+    del db, host
+    torch.cuda.empty_cache()
+    return sql_rows
+
+
 def tpch_days(s: str) -> int:
     return int(np.datetime64(s, "D").astype(np.int32))
 
@@ -1647,6 +2242,11 @@ def main(argv=None) -> int:
                     "also profiled, whatever the time (default: 3, or 1 "
                     f"where the first run took over {DQ_SLOW_FIRST_S} s, "
                     f"while the run stays under {DQ_EXTRAS_BUDGET_S} s)")
+    ap.add_argument("--tpcds-sf", type=float, default=TPCDS_SF,
+                    help=f"TPC-DS scale of phase 8 (default {TPCDS_SF})")
+    ap.add_argument("--storage-sql-sf", type=float, default=STORAGE_SQL_SF,
+                    help="TPC-H scale of phase 9's SQL over sharded tables "
+                    f"(default {STORAGE_SQL_SF})")
     ap.add_argument("--baseline-source", default=None,
                     help="an earlier grouped_sum.cu with the zero-filled-"
                     "output interface, timed beside the kernels in the "
@@ -1740,7 +2340,8 @@ def main(argv=None) -> int:
     from ydb_tpu_torch.engine.oracle import OracleTable
 
     res = {k: OracleTable.from_block(v) for k, v in outs.items()}
-    check_q1(res["q1"], numpy_q1(li, tpch._days("1998-12-01") - 90))
+    want1 = numpy_q1(li, tpch._days("1998-12-01") - 90)
+    check_q1(res["q1"], want1)
     want6 = numpy_q6(li, tpch._days("1994-01-01"), tpch._days("1995-01-01"))
     assert res["q6"].num_rows == 1
     assert int(res["q6"].cols["revenue"][0][0]) == want6
@@ -1880,10 +2481,18 @@ def main(argv=None) -> int:
 
     # ---- phase 7: whole-plan fusion ----
     fusion = fusion_phase(dev, ck)
+
+    # ---- phase 8: TPC-DS ----
+    tpcds_rows = tpcds_phase(dev, ck, args.tpcds_sf)
+
+    # ---- phase 9: the ColumnShard storage path ----
+    storage = storage_phase(dev, ck, tp, cb, args.storage_sql_sf,
+                            (want1, want6))
     for row in kernel_rows:
         row["sql_launches"] = sql_launches[row["name"]]
         row["dq_launches"] = dq_launches[row["name"]]
         row["fused_launches"] = fusion["kernel_launches"][row["name"]]
+        row["storage_launches"] = storage["launches"][row["name"]]
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
@@ -1891,7 +2500,8 @@ def main(argv=None) -> int:
                   sf=args.sf, lineitem_rows=n_li, hits_rows=args.hits_rows,
                   sql=sql_rows, sql_sf=sql_tp.sf,
                   sql_golden_float_exceptions=exceptions,
-                  sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion)
+                  sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion,
+                  tpcds=tpcds_rows, storage=storage)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

@@ -5,7 +5,8 @@ Each case builds the same seeded numpy tables in both packages (the port
 on the CPU) and joins them with ``lookup_join``, ``expand_join`` and
 ``run_equi_join``. Inputs include NULL keys, duplicate build keys, an
 empty build side, two-column keys with negative values and an expand
-join that overflows its first capacity and retries. Every output —
+join that overflows its first capacity and retries, and a chain of expand
+joins whose first capacities the reference compounds. Every output —
 data, validity, length, found mask and expand total — must match bit
 for bit.
 """
@@ -138,31 +139,41 @@ def test_expand_join_matches_reference(case, kind):
 
 @pytest.mark.parametrize("kind", ["inner", "left"])
 def test_expand_overflow_retries_to_exact_capacity(kind):
-    """Duplicate build keys make the first capacity (probe capacity x
-    fanout_hint) too small: both packages retry at the exact, 1024-rounded
-    total and agree on every row."""
+    """Duplicate build keys make the reference's first capacity (probe
+    capacity x fanout_hint) too small, so it retries at the exact,
+    1024-rounded total; the port sizes its one emission at that same
+    capacity from the match count (no retry, no compounding guess along
+    a chain of expand joins). Both agree on every row."""
     (pd, pv), (bd, bv) = _tables(6, 2000, 3000, 40, 0.02)
     rp, tp = _blocks(pd, pv, PROBE_FIELDS)
     rb, tb = _blocks(bd, bv, BUILD_FIELDS)
     kw = dict(kind=kind, suffix="_b", expand=True,
-              probe_payload=("pk", "pv"), build_payload=("bv", "bk2"),
-              fanout_hint=1.0)
-    calls = []
-    real = tjoin.expand_join
+              probe_payload=("pk", "pv"), build_payload=("bv", "bk2"))
+    calls, rcalls = [], []
+    real, rreal = tjoin._expand_emit, rjoin.expand_join
 
-    def spy(*a, **k):
-        out = real(*a, **k)
-        calls.append((k["out_capacity"], int(out[1])))
+    def spy(probe, build, counted, *a):
+        out = real(probe, build, counted, *a)
+        calls.append((out.capacity, int(counted[-1])))
         return out
 
-    tjoin.expand_join = spy
+    def rspy(*a, **k):
+        out = rreal(*a, **k)
+        rcalls.append((k["out_capacity"], int(out[1])))
+        return out
+
+    tjoin._expand_emit = spy
+    rjoin.expand_join = rspy
     try:
         t = tjoin.run_equi_join(tp, tb, ("pk", "pk2"), ("bk", "bk2"), **kw)
+        r = rjoin.run_equi_join(rp, rb, ("pk", "pk2"), ("bk", "bk2"),
+                                fanout_hint=1.0, **kw)
     finally:
-        tjoin.expand_join = real
-    r = rjoin.run_equi_join(rp, rb, ("pk", "pk2"), ("bk", "bk2"), **kw)
-    assert len(calls) == 2 and calls[0][1] > calls[0][0], calls
-    assert calls[1][0] == -(-calls[0][1] // 1024) * 1024
+        tjoin._expand_emit = real
+        rjoin.expand_join = rreal
+    assert len(rcalls) == 2 and rcalls[0][1] > rcalls[0][0], rcalls
+    assert calls == [(rcalls[1][0], rcalls[0][1])], (calls, rcalls)
+    assert calls[0][0] == -(-calls[0][1] // 1024) * 1024
     assert_blocks_equal(t, r, kind)
 
 
@@ -192,3 +203,68 @@ def test_key_packing_matches_reference():
     t = tjoin._key_i64([TCol(torch.from_numpy(a), torch.from_numpy(ok)),
                         TCol(torch.from_numpy(b), torch.from_numpy(ok))])
     np.testing.assert_array_equal(t.numpy(), np.asarray(r))
+
+
+def test_chained_expand_joins_size_exactly():
+    """A chain of three expand joins with few matches: the reference's
+    first guess at each join is its probe's capacity x fanout_hint (4),
+    and each probe is the last join's output at that guessed capacity,
+    so the guesses compound 4x per join; the port sizes every output
+    from its match count (1024-rounded). Every joined row agrees."""
+    rng = np.random.default_rng(12)
+    n = 4000
+
+    def table(**cols):
+        data = {k: v.astype(np.int64) for k, v in cols.items()}
+        fields = tuple((k, "INT64") for k in data)
+        valid = {k: np.ones(len(v), bool) for k, v in data.items()}
+        return _blocks(data, valid, fields, nullable=False)
+
+    probe = table(a=rng.permutation(n), pv=rng.integers(0, 99, n))
+    b1 = table(a1=rng.integers(0, n, 40), b=rng.integers(0, 30, 40))
+    b2 = table(b2=np.arange(30) % 20, c=rng.integers(0, 25, 30))
+    b3 = table(c3=np.arange(25), v=rng.integers(0, 9, 25))
+    steps = ((b1, ("a",), ("a1",), ("b",)),
+             (b2, ("b",), ("b2",), ("c",)),
+             (b3, ("c",), ("c3",), ("v",)))
+
+    caps, rcaps = [], []
+    real, rreal = tjoin._expand_emit, rjoin.expand_join
+
+    def spy(probe, build, counted, *a):
+        out = real(probe, build, counted, *a)
+        caps.append((out.capacity, int(counted[-1])))
+        return out
+
+    def rspy(*a, **k):
+        out = rreal(*a, **k)
+        rcaps.append((k["out_capacity"], int(out[1])))
+        return out
+
+    tjoin._expand_emit = spy
+    rjoin.expand_join = rspy
+    try:
+        (r, t), payload = probe, ("a", "pv")
+        for (rb, tb), pkeys, bkeys, bpay in steps:
+            kw = dict(kind="inner", expand=True, probe_payload=payload,
+                      build_payload=bpay)
+            r = rjoin.run_equi_join(r, rb, pkeys, bkeys, **kw)
+            t = tjoin.run_equi_join(t, tb, pkeys, bkeys, **kw)
+            payload += bpay
+            assert int(t.length) == int(r.length)
+            td, _ = t.host_columns()
+            rd, _ = r.host_columns()
+            for name in rd:
+                np.testing.assert_array_equal(td[name], rd[name],
+                                              err_msg=name)
+    finally:
+        tjoin._expand_emit = real
+        rjoin.expand_join = rreal
+    assert 0 < caps[-1][1] <= 1024, caps
+    # no reference retry: each first guess held its matches
+    assert len(rcaps) == 3 and all(m <= c for c, m in rcaps), rcaps
+    assert [c for c, _ in rcaps[1:]] == [4 * c for c, _ in rcaps[:-1]]
+    assert [m for _, m in caps] == [m for _, m in rcaps]
+    assert [c for c, _ in caps] == [
+        max(-(-m // 1024) * 1024, 1024) for _, m in rcaps]
+    assert rcaps[-1][0] >= 64 * caps[-1][0], (caps, rcaps)

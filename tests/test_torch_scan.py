@@ -229,6 +229,18 @@ FUSION_PATH_MODULES = (
     "ydb_tpu_torch.ssa.plan_fuse", "ydb_tpu_torch.ssa.cuda_kernels",
     "ydb_tpu_torch.workload.clickbench",
 )
+#: the ColumnShard storage path's modules and TPC-DS, likewise
+STORAGE_PATH_MODULES = (
+    "ydb_tpu_torch.workload.tpcds", "ydb_tpu_torch.workload.runner",
+    "ydb_tpu_torch.chaos.retry", "ydb_tpu_torch.stats",
+    "ydb_tpu_torch.stats.sketch", "ydb_tpu_torch.stats.zonemap",
+    "ydb_tpu_torch.stats.cost", "ydb_tpu_torch.stats.aggregator",
+    "ydb_tpu_torch.engine.portion", "ydb_tpu_torch.runtime.conveyor",
+    "ydb_tpu_torch.obs", "ydb_tpu_torch.obs.probes",
+    "ydb_tpu_torch.engine.blockcache", "ydb_tpu_torch.engine.resident",
+    "ydb_tpu_torch.engine.staging", "ydb_tpu_torch.engine.reader",
+    "ydb_tpu_torch.engine.stream_sched", "ydb_tpu_torch.engine.shard",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -250,9 +262,11 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         missing = sorted(set(%r) - set(names))
         assert not missing, missing
         print(len(names))
-    """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES,))
+    """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
+           + STORAGE_PATH_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= (15 + len(SQL_PATH_MODULES)
-                                           + len(DQ_PATH_MODULES) + 1)
+                                           + len(DQ_PATH_MODULES) + 1
+                                           + len(STORAGE_PATH_MODULES))

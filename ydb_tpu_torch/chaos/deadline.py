@@ -4,7 +4,9 @@ The port's own copy of ``ydb_tpu/chaos/deadline.py``. A caller
 activates a :class:`Deadline` on its thread (``activate``); the DQ
 compute actors check it cooperatively at each source block boundary
 (``current()`` + ``expired()``), and the plan executor turns a graph
-aborted that way into :class:`StatementCancelled`. The disabled path is
+aborted that way into :class:`StatementCancelled`. Scans check it per
+block (``check_current``), and ``wrap_current`` carries it onto the
+conveyor's worker threads (staging producers, morsel IO). The disabled path is
 one thread-local read.
 """
 
@@ -74,3 +76,17 @@ def check_current(what: str = "statement") -> None:
     if dl is not None and time.monotonic() >= dl.at:
         raise StatementCancelled(f"{what}: deadline exceeded")
 
+
+
+def wrap_current(fn):
+    """Bind the caller's deadline to ``fn`` for execution on another
+    thread (the conveyor's submit hook)."""
+    dl = getattr(_tls, "deadline", None)
+    if dl is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        with activate(dl):
+            return fn(*args, **kwargs)
+
+    return bound

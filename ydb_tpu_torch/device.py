@@ -8,9 +8,19 @@ and no explicit CPU the entry points raise instead of falling back.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
+
+#: Held by a CUDA graph capture (``ssa/plan_fuse.py``: warm-up and
+#: capture) and by every worker thread around the CUDA work it issues
+#: (block staging on a scan's producer thread, resident promotion). A
+#: capture in the default mode fails when another thread calls the CUDA
+#: API meanwhile, and the warm-up's ``set_sync_debug_mode("error")`` is
+#: process-wide.
+capture_lock = threading.RLock()
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
@@ -23,3 +33,16 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
             "torch.cuda.is_available() is False here; pass device='cpu' "
             "to run on the CPU")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether two device specs name one device (``cuda`` is the current
+    CUDA device)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or (a.index is not None and b.index is not None):
+        return a.index == b.index
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)

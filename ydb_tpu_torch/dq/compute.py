@@ -218,7 +218,6 @@ class _CompiledStage:
             probe, build, j.probe_keys, j.build_keys, kind=j.kind,
             suffix=j.suffix, expand=j.expand, payload=j.payload,
             probe_payload=j.probe_payload, build_payload=j.build_payload,
-            fanout_hint=j.fanout_hint,
         )
 
     def run_final(self, blocks: list[TableBlock]) -> TableBlock:

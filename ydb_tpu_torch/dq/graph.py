@@ -70,8 +70,8 @@ class JoinSpec:
     build_payload: tuple[str, ...] = ()
     kind: str = "inner"  # inner | left | semi | anti (expand: inner|left)
     suffix: str = ""
-    expand: bool = False  # N:M expansion vs N:1 lookup
-    fanout_hint: float = 4.0  # expand: initial output capacity multiple
+    expand: bool = False  # N:M expansion vs N:1 lookup (output sized
+                          # exactly from the match count)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,7 @@ bound the number of blocks in flight.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Iterator
@@ -29,6 +30,7 @@ from ydb_tpu_torch.blocks.block import (
     device_aux,
 )
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
+from ydb_tpu_torch.chaos import deadline as statement_deadline
 from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.engine.oracle import OracleTable
 from ydb_tpu_torch.ssa import kernels, twophase
@@ -199,10 +201,16 @@ class ScanExecutor:
         block_rows: int = DEFAULT_BLOCK_ROWS,
         device: "str | torch.device | None" = None,
         key_spaces: dict[str, int] | None = None,
+        group_est: float | None = None,
     ):
         self.device = resolve_device(device)
         self.source = source
         self.block_rows = block_rows
+        # advisory NDV-based group-count estimate (stats.cost): steers
+        # the PARTIAL program's group-by tier choice; the final/combine
+        # programs run over small partial blocks and keep their own
+        # sizing
+        self.group_est = group_est
         # first run of each program (partial / combine / final) includes
         # its one-off costs (aux staging, kernel build and load, CUDA
         # module loading); timed once per program with a device sync and
@@ -220,7 +228,8 @@ class ScanExecutor:
         self._out_nullable = check_program(program, in_schema).out_nullable
         self.partial_prog, self.final_prog = twophase.split(program)
         self.partial = compile_program(
-            self.partial_prog, in_schema, source.dicts, key_spaces)
+            self.partial_prog, in_schema, source.dicts, key_spaces,
+            group_est=group_est)
         self._partial_aux = device_aux(self.partial.aux, self.device)
         self._combine = None
         self._combine_aux = {}
@@ -292,11 +301,30 @@ class ScanExecutor:
         return self._timed_first("_finalize_traced", self._finalize_parts,
                                  list(partials))
 
-    def run_stream(self, blocks) -> TableBlock:
+    def run_stream(self, blocks, timer=None,
+                   consumed_cb=None) -> TableBlock:
         """Drive a block stream with bounded in-flight work; returns the
-        result block (merged partials finalized, or concatenated rows)."""
+        result block (merged partials finalized, or concatenated rows).
+
+        The stream contract admits out-of-order-READY production: a
+        morsel pipeline (engine.stream_sched) may complete blocks in
+        any order underneath, as long as the iterator delivers them in
+        order — this loop consumes strictly in order and, via
+        ``consumed_cb`` (called once per admitted block), returns the
+        in-order consumption credit that lets the producer account its
+        double-buffered slabs.
+
+        ``timer`` (obs.probes.StageTimer) charges block launches and
+        backpressure waits to the "compute" stage; time spent PULLING
+        from ``blocks`` (the staging pipeline) is charged by the
+        producer side, so the two stages expose their overlap. Each
+        block boundary is a statement-deadline cancellation point."""
         window: collections.deque = collections.deque()
         partials: list[TableBlock] = []
+
+        def computing():
+            return (timer.stage("compute") if timer is not None
+                    else contextlib.nullcontext())
 
         def admit(out):
             partials.append(out)
@@ -310,19 +338,25 @@ class ScanExecutor:
                 window.popleft().synchronize()
 
         for b in blocks:
-            admit(self.run_block(b))
-            if self._combine is not None and len(partials) >= self.COMBINE_EVERY:
-                merged = self._timed_first("_combine_traced",
-                                           self._combine_parts, partials)
-                partials = []
-                admit(merged)
-        if self.final is None:
-            # pure filter/project program: block outputs concatenate
-            out = (partials[0] if len(partials) == 1
-                   else concat_blocks(partials))
-        else:
-            out = self.finalize(partials)
-        return self._retype(out)
+            statement_deadline.check_current("scan")
+            with computing():
+                admit(self.run_block(b))
+                if self._combine is not None and \
+                        len(partials) >= self.COMBINE_EVERY:
+                    merged = self._timed_first(
+                        "_combine_traced", self._combine_parts, partials)
+                    partials = []
+                    admit(merged)
+            if consumed_cb is not None:
+                consumed_cb()
+        with computing():
+            if self.final is None:
+                # pure filter/project program: block outputs concatenate
+                out = (partials[0] if len(partials) == 1
+                       else concat_blocks(partials))
+            else:
+                out = self.finalize(partials)
+            return self._retype(out)
 
     def _stamp_nullability(self, sch: dtypes.Schema) -> dtypes.Schema:
         """Original-program nullability over a rewritten-program schema

@@ -78,21 +78,17 @@ def plan_to_stages(plan, n_tasks: int = 2, estimator=None,
     which the SQL planner guarantees).
 
     ``estimator(node) -> float | None`` supplies statistics-based row
-    estimates (in the reference, stats.cost.estimate_plan_rows bound to
-    the aggregator's TableStats; the port has no table statistics yet,
-    so its executor passes none). Two consumers:
-
-      * expand-join output capacity — ``fanout_hint`` is sized from the
-        estimated output/probe ratio instead of the fixed 4x guess, so
-        skew neither over-allocates HBM nor walks the overflow-retry
-        ladder (bit-identical: capacity only changes dead padding);
-      * build-side selection (``allow_swap=True``) — an inner expand
-        join whose "build" side is estimated much larger than its probe
-        side swaps the two (a grace join should build on the SMALL
-        side). Only taken when both payload column sets keep the exact
-        same output names (no suffix on either role), so the stage's
-        schema is unchanged; result ROW ORDER may differ, which is why
-        the swap is opt-in for callers that sort or aggregate above.
+    estimates (for example ``stats.cost.estimate_plan_rows`` bound to a
+    statistics aggregator's TableStats). Their one consumer is
+    build-side selection (``allow_swap=True``): an inner expand join
+    whose "build" side is estimated much larger than its probe side
+    swaps the two (a grace join should build on the SMALL side). Only
+    taken when both payload column sets keep the exact same output
+    names (no suffix on either role), so the stage's schema is
+    unchanged; result ROW ORDER may differ, which is why the swap is
+    opt-in for callers that sort or aggregate above. Expand-join output
+    capacity needs no estimate: each join stage sizes its output
+    exactly from its match count (``ssa/join.py:run_equi_join``).
     """
     stages: list[dict] = []  # mutable specs; frozen at the end
 
@@ -142,14 +138,6 @@ def plan_to_stages(plan, n_tasks: int = 2, estimator=None,
                              payload=node.payload, kind=node.kind,
                              suffix=node.suffix)
             else:
-                fanout = node.fanout_hint
-                out_rows = est(node)
-                base = b_rows if swapped else p_rows
-                if out_rows is not None and base:
-                    # estimated per-probe-row expansion, padded 2x and
-                    # bounded: capacity sizing only, never semantics
-                    fanout = min(64.0, max(1.0,
-                                           2.0 * out_rows / base))
                 pp = node.probe_payload
                 bp = node.build_payload
                 if swapped:
@@ -157,7 +145,7 @@ def plan_to_stages(plan, n_tasks: int = 2, estimator=None,
                 j = JoinSpec(probe_keys, build_keys,
                              probe_payload=pp, build_payload=bp,
                              kind=node.kind, suffix=node.build_suffix,
-                             expand=True, fanout_hint=fanout)
+                             expand=True)
             return add(program=None,
                        inputs=(UnionAllInput(pi), UnionAllInput(bi)),
                        output=None, tasks=n_tasks, join=j)
@@ -213,8 +201,8 @@ def execute_plan_dq(
     """Run a logical plan through the DQ stage graph on ``runtime``
     (SimRuntime or a single ActorSystem). ``sources`` maps each table to
     its partition list (see partition_source); ``estimator`` /
-    ``allow_swap`` feed statistics into join sizing and build-side
-    selection (plan_to_stages); ``graph_kw`` goes to
+    ``allow_swap`` feed statistics into build-side selection
+    (plan_to_stages); ``graph_kw`` goes to
     ``run_stage_graph`` (``device``, ``block_rows``, ...)."""
     from ydb_tpu_torch.dq.compute import run_stage_graph
 

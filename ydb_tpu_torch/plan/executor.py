@@ -16,11 +16,18 @@ kernels of ``ssa/join.py``, and transforms compile against the inferred
 intermediate schema. Everything runs on the database's device (CUDA
 unless ``Database.device`` names another).
 
-Not in the port yet, each with its ROADMAP.md queue A item: zone-map
-pruning, the block cache, the resident tier and the table statistics
-behind DQ join sizing (item 10; fused staging reads the source's
-columns directly), tracing, probes, ``StageTimer`` and the ``fuse.trace``
-chaos hook (items 12 and 14), and the mesh executor (item 13).
+Sources may be host or device ``ColumnSource``s or the ColumnShard
+storage path's ``MultiShardStreamSource`` (``engine/reader.py``). For
+the latter, as in the reference: a scan's conjunctive filters prune
+portions and chunks by their zone maps (``_pruned_source``, statistics
+on), ``Database.block_cache`` serves repeated block streams unless the
+shards' resident tier is on, and DQ takes each shard's stream as one
+partition. DQ join stages size their output exactly from the match
+count, so the reference's statistics-based join sizing
+(``Database.table_stats`` into ``plan_to_stages(estimator=...)``) has
+nothing to size here and is left out. Not in the port yet, each with
+its ROADMAP.md queue A item: tracing, probes and the ``fuse.trace``
+chaos hook (item 7), and the mesh executor (item 8).
 """
 
 from __future__ import annotations
@@ -55,9 +62,10 @@ SCAN_BLOCK_ROWS = 1 << 22
 #: reference; YDB_TPU_TORCH_DQ=0 restores the walk
 DQ_ON = os.environ.get("YDB_TPU_TORCH_DQ", "1") not in ("0", "", "off")
 #: tasks per scan and join stage, and rows per source block, of a DQ
-#: graph (the reference's defaults)
-DQ_TASKS = 2
-DQ_BLOCK_ROWS = 1 << 20
+#: graph (the reference's defaults and knobs)
+DQ_TASKS = int(os.environ.get("YDB_TPU_TORCH_DQ_TASKS", "2"))
+DQ_BLOCK_ROWS = int(os.environ.get("YDB_TPU_TORCH_DQ_BLOCK_ROWS",
+                                   str(1 << 20)))
 
 
 @dataclasses.dataclass
@@ -77,6 +85,10 @@ class Database:
     key_spaces: dict[str, int] | None = None
     _compile_cache: dict = dataclasses.field(default_factory=dict)
     device: "str | torch.device | None" = None
+    # a DeviceBlockCache (engine/blockcache.py): table scans over
+    # portion-backed sources reuse device-resident decoded blocks across
+    # statements. The cache outlives any one Database.
+    block_cache: object = None
 
     def invalidate_compile_cache(self):
         self._compile_cache.clear()
@@ -87,6 +99,44 @@ def _materialize(source: ColumnSource, columns, dev) -> TableBlock:
     blocks = list(source.blocks(block_rows=1 << 40, columns=names,
                                 device=dev))
     return blocks[0] if len(blocks) == 1 else concat_blocks(blocks)
+
+
+def _pruned_source(src, program, db: Database):
+    """Predicate-pruned view of a scan source, when statistics are on
+    and the source supports it (MultiShardStreamSource.with_predicates).
+    Falls through to the original source otherwise — ColumnSources have
+    no chunk plane to prune."""
+    from ydb_tpu_torch import stats as stats_mod
+
+    with_preds = getattr(src, "with_predicates", None)
+    if with_preds is None or not stats_mod.stats_enabled():
+        return src
+    from ydb_tpu_torch.stats.zonemap import extract_predicates
+
+    preds, _full = extract_predicates(program, src.schema, db.dicts)
+    if not preds:
+        return src
+    return with_preds(preds)
+
+
+def _cached_stream(src, read_cols, db: Database, dev):
+    """``src``'s block stream on ``dev``, through ``db.block_cache`` when
+    the source has a cache identity, the cache is on and no shard of the
+    source serves from its resident tier (caching the assembled stream
+    AND pinning its columns would hold the same bytes twice)."""
+    raw_stream = src.blocks(SCAN_BLOCK_ROWS, read_cols, device=dev)
+    bc = db.block_cache
+    key_of = getattr(src, "device_cache_key", None)
+    res_on = any(
+        getattr(s.shard, "resident", None) is not None
+        and s.shard.resident.enabled()
+        for s in getattr(src, "subs", ()))
+    if bc is None or key_of is None or bc.budget() <= 0 or res_on:
+        return raw_stream
+    # bind the RAW source stream: the single-flight cache calls
+    # make_blocks lazily (on first next())
+    return bc.stream(key_of(read_cols, SCAN_BLOCK_ROWS),
+                     lambda: raw_stream)
 
 
 def _plan_nodes(plan: PlanNode):
@@ -103,8 +153,12 @@ def _plan_nodes(plan: PlanNode):
 
 
 def _partition_for_dq(src) -> list:
-    """A table's scan partitions for DQ task feeding: round-robin row
-    slices (``partition_source``)."""
+    """A table's scan partitions for DQ task feeding: per-shard portion
+    streams for sharded tables (their natural partitioning), round-robin
+    row slices (``partition_source``) for ColumnSources."""
+    subs = getattr(src, "subs", None)
+    if subs:
+        return list(subs)
     if isinstance(src, ColumnSource) and src.num_rows > 0:
         from ydb_tpu_torch.kqp.dq_lower import partition_source
 
@@ -207,8 +261,12 @@ def _scan_node(plan: TableScan, db: Database, dev) -> TableBlock:
             key_spaces=db.key_spaces,
         ).detach()  # cache compiled state, not the source
         db._compile_cache[key] = ex
-    return ex.run_stream(src.blocks(SCAN_BLOCK_ROWS, ex.read_cols,
-                                    device=dev))
+    # zone-map scan pruning (stats.zonemap): the pushdown program's
+    # conjunctive filters skip portions/chunks before any blob read;
+    # the pruned view carries its predicate fingerprint into the device
+    # cache key, so pruned streams never alias unpruned ones
+    src = _pruned_source(src, plan.program, db)
+    return ex.run_stream(_cached_stream(src, ex.read_cols, db, dev))
 
 
 def _stage_fused_site(site, db: Database, fused) -> TableBlock:
@@ -216,16 +274,18 @@ def _stage_fused_site(site, db: Database, fused) -> TableBlock:
     plan's device. On CUDA they are copied straight into the fused plan's
     static input block, which is returned (a host table is one copy from
     the host, a table held on the card one copy on the card); elsewhere
-    they make a fresh block. A source that is not a ``ColumnSource`` (a
-    block stream, as the storage tiers of ROADMAP.md item 10 give)
-    streams its blocks, which ``fit_blocks`` merges and pads."""
+    they make a fresh block. A source that is not a ``ColumnSource`` (the
+    storage path's ``MultiShardStreamSource``) streams its blocks —
+    zone-map pruned and through the block cache as ``_scan_node`` does —
+    which ``fit_blocks`` merges and pads."""
     from ydb_tpu_torch.ssa import plan_fuse
 
     src = db.sources[site.table]
     dev = fused.device
     if not isinstance(src, ColumnSource):
-        blocks = tuple(src.blocks(SCAN_BLOCK_ROWS, site.read_cols,
-                                  device=dev))
+        if site.node.program is not None:
+            src = _pruned_source(src, site.node.program, db)
+        blocks = tuple(_cached_stream(src, site.read_cols, db, dev))
         return plan_fuse.fit_blocks(blocks, site.capacity)
     arrays = {m: src.columns[m] for m in site.read_cols}
     validity = None
@@ -312,7 +372,6 @@ def _execute_node(plan: PlanNode, db: Database, _memo: dict) -> TableBlock:
             kind=plan.kind, suffix=plan.build_suffix, expand=True,
             probe_payload=plan.probe_payload,
             build_payload=plan.build_payload,
-            fanout_hint=plan.fanout_hint,
         )
     if isinstance(plan, Transform):
         block = execute_plan(plan.input, db, _memo)

@@ -88,6 +88,8 @@ class _Lowering:
         # outputs like MIN(s) AS lo keep s's dictionary)
         self.dict_aliases = dict(dict_aliases or {})
         self.group_layout: tuple = (None, None)
+        # advisory NDV-based distinct-group estimate (compile_program)
+        self.group_est: float | None = None
         self.types: dict[str, dtypes.LogicalType] = {
             f.name: f.type for f in schema.fields
         }
@@ -125,6 +127,7 @@ def _compile_program(
     key_spaces: dict[str, int] | None = None,
     partial_slots: bool = False,
     dict_aliases: dict[str, str] | None = None,
+    group_est: float | None = None,
 ) -> CompiledProgram:
     """The span-free lowering entry point that whole-plan fusion
     (``ssa/plan_fuse.py``) calls for every fragment, with the reference's
@@ -136,7 +139,7 @@ def _compile_program(
             "partial_slots (the dense_slots group-by layout) is not in the "
             "port yet")
     return compile_program(program, schema, dicts, key_spaces,
-                           dict_aliases=dict_aliases)
+                           dict_aliases=dict_aliases, group_est=group_est)
 
 
 def compile_program(
@@ -145,6 +148,7 @@ def compile_program(
     dicts: DictionarySet | None = None,
     key_spaces: dict[str, int] | None = None,
     dict_aliases: dict[str, str] | None = None,
+    group_est: float | None = None,
 ) -> CompiledProgram:
     # mandatory precondition: no program reaches the lowering unverified
     # (lazy import: the verifier's program imports would re-enter
@@ -153,6 +157,9 @@ def compile_program(
 
     out_nullable = _verify.check_program(program, schema).out_nullable
     ctx = _Lowering(schema, dicts, key_spaces, dict_aliases)
+    # advisory distinct-group estimate (stats.cost NDV product): picks
+    # between equally-exact group-by tiers; never a correctness bound
+    ctx.group_est = group_est
 
     # ---- static pass: resolve plan, types, aux tables, output schema ----
     plan: list = []
@@ -994,6 +1001,13 @@ def _resolve_group_by(ctx: _Lowering, step: GroupByStep, cur_types,
     num_groups = bound_product or 0
     dense = bound_product is not None and \
         bound_product <= _DENSE_GROUP_LIMIT
+    if dense and ctx.group_est is not None \
+            and num_groups > 64 and num_groups > 8 * ctx.group_est:
+        # NDV says the mixed-radix slot space is mostly dead (e.g. two
+        # 100-ary keys with 50 real combinations): the sorted tier at
+        # bound_product capacity beats scattering into dead slots. Both
+        # tiers are exact — this is purely a cost choice.
+        dense = False
 
     out_types: dict[str, dtypes.LogicalType] = {}
     for k in keys:

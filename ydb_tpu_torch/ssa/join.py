@@ -141,13 +141,18 @@ def run_equi_join(
     payload=(),
     probe_payload=(),
     build_payload=(),
-    fanout_hint: float = 4.0,
 ) -> TableBlock:
     """One entry point for every equi-join shape.
 
     Lookup (N:1) joins support inner/left/semi/anti; expand (N:M) joins
-    support inner/left and retry with exact capacity on overflow (the
-    ``int(total)`` read is the one deliberate wait for the device).
+    support inner/left and size their output from the match count (the
+    ``int(total)`` read is the one deliberate wait for the device). The
+    reference first guesses probe capacity × ``fanout_hint`` and retries
+    exactly on overflow; along a chain of expand joins each guess starts
+    from the last one's padded capacity, so the guesses compound (4x per
+    join, whatever the matches), while an exact size equals the retry's
+    and needs one pass (``tests/test_torch_join.py``,
+    ``test_chained_expand_joins_size_exactly``).
     """
     if not expand:
         joined, found = lookup_join(
@@ -165,15 +170,11 @@ def run_equi_join(
     if kind not in ("inner", "left"):
         # expand_join silently computes INNER for anything else
         raise ValueError(f"expand join does not support kind {kind!r}")
-    cap = max(int(probe.capacity * fanout_hint), 1024)
-    while True:
-        out, total = expand_join(
-            probe, build, list(probe_keys), list(build_keys),
-            list(probe_payload), list(build_payload),
-            out_capacity=cap, build_suffix=suffix, kind=kind)
-        if int(total) <= cap:
-            return out
-        cap = int(int(total) + 1023) // 1024 * 1024  # exact retry
+    counted = _expand_counts(probe, build, list(probe_keys),
+                             list(build_keys), kind)
+    cap = max(int(counted[-1] + 1023) // 1024 * 1024, 1024)
+    return _expand_emit(probe, build, counted, list(probe_payload),
+                        list(build_payload), cap, suffix, kind)
 
 
 def expand_join(
@@ -195,6 +196,16 @@ def expand_join(
     are truncated — callers check ``total <= out_capacity`` (host
     side) and retry bigger if exceeded.
     """
+    counted = _expand_counts(probe, build, probe_keys, build_keys, kind)
+    return (_expand_emit(probe, build, counted, probe_payload,
+                         build_payload, out_capacity, build_suffix, kind),
+            counted[-1])
+
+
+def _expand_counts(probe, build, probe_keys, build_keys, kind):
+    """An expand join's match plan: the build order, each probe row's
+    first match and match count, emitted rows per probe row, their
+    inclusive offsets, and the total (a 0-d tensor, last)."""
     pk, plive = _join_keys_live(probe, probe_keys)
     bk, blive = _join_keys_live(build, build_keys)
     # LEFT JOIN keeps probe rows whose key is NULL too (they just match
@@ -219,6 +230,16 @@ def expand_join(
         counts = matches
     offsets = torch.cumsum(counts, 0)  # inclusive
     total = offsets[-1] if counts.shape[0] else zero
+    return order, lo, matches, counts, offsets, total
+
+
+def _expand_emit(probe, build, counted, probe_payload, build_payload,
+                 out_capacity: int, build_suffix: str,
+                 kind: str) -> TableBlock:
+    """The joined block of ``out_capacity`` rows from an expand plan
+    (``_expand_counts``); rows past the capacity are cut."""
+    order, lo, matches, counts, offsets, total = counted
+    dev = offsets.device
     starts = offsets - counts
 
     # map each output slot j to (probe row i, k-th match)
@@ -246,7 +267,4 @@ def expand_join(
         fields.append(dtypes.Field(
             out_name, f.type, f.nullable or kind == "left"))
     length = torch.clamp(total, max=out_capacity).to(torch.int32)
-    return (
-        TableBlock(cols, length, dtypes.Schema(tuple(fields))),
-        total,
-    )
+    return TableBlock(cols, length, dtypes.Schema(tuple(fields)))

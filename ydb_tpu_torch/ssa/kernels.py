@@ -304,7 +304,9 @@ def fused_group_reduce(stacked: torch.Tensor, gid: torch.Tensor,
     zero); ``gid`` carries dead rows as >= num_groups. Tiers:
 
       * groups <= ONEHOT_GROUP_LIMIT — one dense contraction
-        ``hits.T @ stacked`` (exact for ints through the limb encoder).
+        ``hits.T @ stacked`` (exact for ints through the limb encoder;
+        from 2^29 rows on, where limbs stop being exact, integers take
+        the 2-D scatter-add).
       * larger, kernel-eligible dtype — the hand-written CUDA kernel
         ``cuda_kernels.grouped_sum_multi`` (its plain version on CPU
         tensors).
@@ -316,11 +318,11 @@ def fused_group_reduce(stacked: torch.Tensor, gid: torch.Tensor,
         if stacked.shape[0] < _INT_LIMB_MAX_ROWS:
             return fused_group_reduce_banks(
                 {dtype: stacked}, gid, num_groups)[dtype]
-        if stacked.is_cuda and not stacked.is_floating_point():
+        if not (stacked.is_floating_point() or dtype == torch.bool):
             # the reference contracts integers in integer dtype here;
-            # CUDA has no integer matmul, and no block holds 2^29 rows
-            raise NotImplementedError(
-                "integer one-hot contraction of >= 2^29 rows on CUDA")
+            # CUDA has no integer matmul, so integers take the exact
+            # int 2-D scatter-add (the large-group tier's fallback)
+            return scatter_add_drop(stacked, gid, num_groups)
         hits = group_hits(gid, num_groups).to(dtype)
         return hits.T @ stacked
     from ydb_tpu_torch.ssa import cuda_kernels

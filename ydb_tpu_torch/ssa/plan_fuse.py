@@ -71,8 +71,8 @@ cached plan keeps it for later statements.
 Env gates: ``YDB_TPU_TORCH_FUSE_PLAN=0`` disables fusion (``FUSE_FORCE``
 overrides it in-process); ``YDB_TPU_TORCH_FUSE_MAX_ROWS`` moves the
 cutoff. Not in the port yet: the ``ssa.compile``/``plan.fuse`` spans and
-the timeline and memsan charges (items 12 and 14 of ROADMAP.md queue A),
-and the mesh lowering that subclasses ``PlanLowering`` (item 13).
+the timeline and memsan charges (items 6 and 7 of ROADMAP.md queue A),
+and the mesh lowering that subclasses ``PlanLowering`` (item 8).
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ from ydb_tpu_torch.blocks.block import (
     TableBlock,
     device_aux,
 )
-from ydb_tpu_torch.device import resolve_device
+from ydb_tpu_torch.device import capture_lock, resolve_device
 from ydb_tpu_torch.engine.scan import merge_blocks_device, required_columns
 from ydb_tpu_torch.plan.nodes import (
     Concat,
@@ -607,7 +607,13 @@ class FusedPlan:
 
     def _capture(self, static: list, stacked: bool = False) -> _Captured:
         """Warm up, then capture ``run_all`` over ``static`` (one replay
-        then serves every member) on the fusion stream."""
+        then serves every member) on the fusion stream, holding
+        ``capture_lock`` so no worker thread calls the CUDA API
+        meanwhile."""
+        with capture_lock:
+            return self._capture_locked(static, stacked)
+
+    def _capture_locked(self, static: list, stacked: bool) -> _Captured:
         from ydb_tpu_torch.ssa import cuda_kernels
 
         s = self._stream
@@ -729,7 +735,7 @@ def build(sig: PlanSignature, db) -> FusedPlan:
     """Compile a fusible plan into one FusedPlan: every node's SSA
     program is verified and lowered up front, so the whole pipeline is
     typed end to end before the first run (the reference's single
-    ``ssa.compile`` span comes with item 14)."""
+    ``ssa.compile`` span comes with ROADMAP.md queue A item 7)."""
     return _build(sig, db)
 
 

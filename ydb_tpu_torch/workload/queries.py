@@ -7,7 +7,7 @@ workload-coverage metric; all 22 queries plan and execute (q21 via the
 counting decorrelation of its non-equi EXISTS).
 
 The port's copy of ``ydb_tpu/workload/queries.py``, unchanged apart from
-this docstring (the TPC-DS texts live elsewhere and are not ported yet).
+this docstring (the TPC-DS texts live in ``workload/tpcds.py``).
 """
 
 TPCH = {
