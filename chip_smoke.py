@@ -4,8 +4,8 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--sf 10] [--sql-sf SF] [--hits-rows 10000000]
-                          [--tpcds-sf 0.1] [--storage-sql-sf 1]
-                          [--json-out PATH]
+                          [--tpcds-sf 0.1] [--storage-sql-sf 0.1]
+                          [--serving-sf 1] [--json-out PATH]
                           [--baseline-source OLD_grouped_sum.cu]
 
 Phases, in order; any failure exits non-zero before the final line:
@@ -59,7 +59,7 @@ Phases, in order; any failure exits non-zero before the final line:
    and checked: its result must equal phase 5's walk result, and Q3, Q5,
    Q13 and Q18 also equal numpy. The warm runs (three, one where the
    first run took over ``DQ_SLOW_FIRST_S``) and the profiled run are
-   made while the script stays under ``DQ_EXTRAS_BUDGET_S``, so the run
+   made while the script stays under ``DQ_EXTRAS_BUDGET_S`` (350 s), so the run
    ends inside its time limit; ``--dq-warm N`` makes them for every
    query. Phases 5 and 6 pin whole-plan fusion off
    (``plan_fuse.FUSE_FORCE = False``): at sf 0.01 it would answer every
@@ -123,7 +123,8 @@ Phases, in order; any failure exits non-zero before the final line:
    run of each of the four scans then holds every kernel call against
    its plain version on the same inputs (one ``{"storage_kernel_check":
    ...}`` line each; these launches are not counted). Last, the 22 TPC-H
-   queries at ``--storage-sql-sf`` (1) over all eight tables, each split
+   queries at ``--storage-sql-sf`` (0.1; phase 10 runs SF-1 over shards
+   through a Cluster) over all eight tables, each split
    over two shards by primary-key range and served as a
    ``MultiShardStreamSource`` with a ``DeviceBlockCache``, through the
    default routing (DQ takes one partition per shard) and the walk, each
@@ -132,6 +133,46 @@ Phases, in order; any failure exits non-zero before the final line:
    and misses. The shards' resident tier is off in this section, so
    table scans of the walk and of fused plans read through the block
    cache (with it on, the cache stands aside).
+10. The session and serving plane (``kqp/session.py``, ``kqp/batch.py``,
+   ``serving/``, ``api/pgwire.py``), on the card, through the entry points
+   a user calls: a port ``Cluster(store=DirBlobStore(tmp),
+   device="cuda")`` with the reference's default ``AppConfig`` (4 shards
+   a table) behind ``PgWireServer(cluster, port=0)``; a minimal protocol
+   3.0 client in this script sends every statement. (1) The eight TPC-H
+   tables at ``--serving-sf`` (1) are created over the wire and loaded
+   through ``ShardedTable.insert`` (the reference's bulk path); the 22
+   queries run over pgwire, first and warm (median of ``SERVING_WARM``,
+   one warm run where the first took over ``SERVING_SLOW_FIRST_S``),
+   each equal to ``execute_plan`` over host ``ColumnSource``s of the same
+   tables (floats rtol 1e-12, everything else byte-equal); one
+   ``{"serving_sql": ...}`` line per query (executor, first and warm
+   seconds, plan- and compile-cache status, rows, peak device memory).
+   (2) ClickBench hits at 131,072 rows (``FUSE_MAX_ROWS``): the 43
+   queries over pgwire, each equal to ``reference_answers``; one
+   ``{"serving_clickbench": ...}`` line each. (3) The batched tier:
+   ``BATCH_CLIENTS`` connections send q33 at once, rounds at window 0
+   and at ``BATCH_WINDOW_MS`` (2 ms) in turns (statements/s, p50/p99;
+   dedup dispatches > 0; every answer equal); then, with the window at
+   ``STACKED_WINDOW_MS``, hits reloaded short of its shape class's top
+   and, for q33, q36 and q38, four connections send the query, a ninth
+   inserts rows, four more send it: one group over two snapshots, one
+   ``run_stacked`` dispatch; every SELECT is held byte for byte against
+   the serial path at the snapshot it read; graph captures per batch
+   size and the graph pools' bytes before and after an invalidation
+   (after: 0). The CUDA kernels' launches are counted from step (1) to
+   here (``serving_launches``; ``grouped_sum_multi`` must launch).
+   (4) q33 and q36 through a Session on the per-aggregate lowering with
+   fusion off, every kernel call held against its plain version
+   (``{"serving_kernel_check": ...}``; not counted). (5) Eight threads run
+   walk, DQ and fused statements through Sessions while a ninth captures
+   a plan not seen before; every result equals its serial answer. (6)
+   Tenants ``gold`` (weight 3) and ``bronze`` (weight 1, one seat, no
+   queue) behind ``serving.install``: connections naming a tenant are
+   admitted under it, an over-cap one is shed with an error naming the
+   pool, the per-tenant p50/p99 gauges are filled. (7) A second Cluster
+   booted from the same directory answers Q1, Q6 and q33 byte for byte
+   over a new server. (8) The 22 golden digests at sf 0.01 through a
+   third Cluster over pgwire.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -978,7 +1019,7 @@ DQ_SLOW_FIRST_S = 2.0
 #: the DQ phase's warm and profiled runs (beyond each query's first,
 #: checked run) are made only while the script's clock, with them, stays
 #: under this: the whole run then ends well inside its time limit
-DQ_EXTRAS_BUDGET_S = 450.0
+DQ_EXTRAS_BUDGET_S = 350.0
 
 #: the DQ layers that ``dq_instruments(timed=True)`` times, by the port
 #: function that does each layer's work (module or class, attribute)
@@ -1772,7 +1813,7 @@ INGEST_CHUNK_ROWS = 1 << 20
 #: (``bench.py:run_ooc``'s ShardConfig)
 STORAGE_BLOCK_ROWS = 1 << 18
 #: TPC-H scale of phase 9's sharded SQL
-STORAGE_SQL_SF = 1.0
+STORAGE_SQL_SF = 0.1
 
 
 def storage_config():
@@ -2222,6 +2263,887 @@ def sharded_sql(sql_sf, root, dev, out) -> list:
     return sql_rows
 
 
+#: TPC-H scale of phase 10's serving path (SF-10 is phase 9's; the cut to
+#: SF-1 keeps the 22 queries, first and warm, inside the time budget)
+SERVING_SF = 1.0
+#: hits rows of phase 10's ClickBench: FUSE_MAX_ROWS, the largest table
+#: whole-plan fusion (and so the batcher) takes
+SERVING_HITS_ROWS = 1 << 17
+#: warm runs per TPC-H query over pgwire (median reported), one where
+#: the first run took over SERVING_SLOW_FIRST_S (q5: its cost-based join
+#: order joins customer and supplier on the nation key first)
+SERVING_WARM = 3
+SERVING_SLOW_FIRST_S = 2.0
+#: the batched tier's window and group cap (YDB_TPU_TORCH_BATCH_*)
+BATCH_WINDOW_MS = 2.0
+BATCH_MAX = 8
+#: client connections of a batched round, and rounds per measurement
+BATCH_CLIENTS = 8
+BATCH_ROUNDS = 8
+#: rows of hits held back from the stacked round's initial load and
+#: inserted over the wire while it runs (the table stays in one shape
+#: class, at most FUSE_MAX_ROWS rows)
+STACKED_HOLDBACK = 8192
+STACKED_INSERT_ROWS = 16
+#: the stacked rounds' window: an INSERT's round trip over the wire takes
+#: longer than BATCH_WINDOW_MS, so it must hold one group open while the
+#: ninth connection commits between two waves of arrivals
+STACKED_WINDOW_MS = 500.0
+
+
+class PgClient:
+    """Just enough of the frontend side of PostgreSQL protocol 3.0 (the
+    framing of ``tests/test_pgwire.py``): startup with optional extra
+    parameters (``tenant``), simple queries, raw field bytes back."""
+
+    def __init__(self, port: int, startup: dict | None = None):
+        import socket
+        import struct
+
+        self._struct = struct
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=600)
+        params = b"user\x00smoke\x00database\x00postgres\x00"
+        for k, v in (startup or {}).items():
+            params += k.encode() + b"\x00" + v.encode() + b"\x00"
+        params += b"\x00"
+        self.sock.sendall(struct.pack("!II", len(params) + 8, 196608)
+                          + params)
+        while True:
+            t, body = self._read()
+            if t == b"E":
+                raise RuntimeError(self._error_text(body))
+            if t == b"Z":
+                break
+
+    def _exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("server closed")
+            buf += chunk
+        return buf
+
+    def _read(self):
+        t = self._exact(1)
+        (n,) = self._struct.unpack("!I", self._exact(4))
+        return t, self._exact(n - 4)
+
+    @staticmethod
+    def _error_text(body: bytes) -> str:
+        fields = {chr(p[0]): p[1:].decode() for p in body.split(b"\x00")
+                  if p}
+        return fields.get("M", "unknown error")
+
+    def query(self, sql: str):
+        """(rows of raw field bytes or None, [(name, oid)], command tags,
+        error messages)."""
+        st = self._struct
+        q = sql.encode() + b"\x00"
+        self.sock.sendall(b"Q" + st.pack("!I", len(q) + 4) + q)
+        rows, cols, tags, errors = [], [], [], []
+        while True:
+            t, body = self._read()
+            if t == b"T":
+                (n,) = st.unpack("!H", body[:2])
+                off, cols = 2, []
+                for _ in range(n):
+                    end = body.index(b"\x00", off)
+                    (oid,) = st.unpack("!I", body[end + 7:end + 11])
+                    cols.append((body[off:end].decode(), oid))
+                    off = end + 19
+            elif t == b"D":
+                (n,) = st.unpack("!H", body[:2])
+                off, row = 2, []
+                for _ in range(n):
+                    (ln,) = st.unpack("!i", body[off:off + 4])
+                    off += 4
+                    row.append(None if ln == -1 else body[off:off + ln])
+                    off += max(ln, 0)
+                rows.append(row)
+            elif t == b"C":
+                tags.append(body.rstrip(b"\x00").decode())
+            elif t == b"E":
+                errors.append(self._error_text(body))
+            elif t == b"Z":
+                return rows, cols, tags, errors
+
+    def ok(self, sql: str):
+        rows, cols, tags, errors = self.query(sql)
+        assert not errors, (sql[:80], errors)
+        return rows, cols
+
+    def close(self) -> None:
+        self.sock.sendall(b"X\x00\x00\x00\x04")
+        self.sock.close()
+
+
+_FLOAT_OIDS = (700, 701)
+
+
+def wire_rows(res) -> list:
+    """An OracleTable as the text DataRows the port's pgwire server sends
+    for it (the server's own formatting, so equal tables give equal
+    bytes)."""
+    from ydb_tpu_torch.api.pgwire import _format_value
+
+    cols = []
+    for f in res.schema.fields:
+        vals, valid = res.cols[f.name]
+        valid = np.asarray(valid, dtype=bool)
+        if f.type.is_string:
+            dec = res.strings(f.name)
+            cols.append([dec[i] if valid[i] else None
+                         for i in range(res.num_rows)])
+        else:
+            scale = getattr(f.type, "scale", 0)
+            cols.append([_format_value(f.type.kind, scale, vals[i])
+                         if valid[i] else None
+                         for i in range(res.num_rows)])
+    return [list(r) for r in zip(*cols)] if cols else []
+
+
+def same_wire(got, want, cols, name, rtol=None) -> None:
+    """Two results as DataRows: equal bytes, except float columns within
+    ``rtol`` when it is given (partial sums merged in another order)."""
+    assert len(got) == len(want), (name, len(got), len(want))
+    for r, (g, w) in enumerate(zip(got, want)):
+        for (col, oid), gv, wv in zip(cols, g, w):
+            if gv == wv:
+                continue
+            assert rtol is not None and oid in _FLOAT_OIDS and \
+                gv is not None and wv is not None, (name, r, col, gv, wv)
+            np.testing.assert_allclose(float(gv), float(wv), rtol=rtol,
+                                       err_msg=f"{name} row {r} {col}")
+
+
+def wire_digest(rows, cols) -> str:
+    """``golden_digest`` of a result read off the wire: the same sha256 as
+    ``tests/test_tpch_sql.py`` pins (ints and dictionary strings exact,
+    decimals as their scaled integers, dates as days, floats rounded to
+    6 places)."""
+    import decimal
+    import hashlib
+
+    h = hashlib.sha256()
+    for i, (name, oid) in enumerate(cols):
+        h.update(name.encode())
+        vals = []
+        for row in rows:
+            v = row[i]
+            if v is None:
+                vals.append(None)
+            elif oid in _FLOAT_OIDS:
+                vals.append(round(float(v), 6))
+            elif oid == 1700:
+                d = decimal.Decimal(v.decode())
+                vals.append(int(d.scaleb(-d.as_tuple().exponent)))
+            elif oid == 1082:
+                vals.append(int(np.datetime64(v.decode(), "D")
+                                .astype(np.int32)))
+            elif oid in (20, 21, 23):
+                vals.append(int(v))
+            else:
+                vals.append(v.decode("latin1"))
+        h.update(json.dumps(vals).encode())
+    return h.hexdigest()
+
+
+def wire_table(rows, cols, dicts, aliases):
+    """DataRows back into an OracleTable-shaped value for
+    ``clickbench._verify``: strings re-encoded into ``dicts``' ids."""
+    from types import SimpleNamespace
+
+    out = {}
+    for i, (name, oid) in enumerate(cols):
+        raw = [r[i] for r in rows]
+        valid = np.array([v is not None for v in raw], dtype=bool)
+        if oid in _FLOAT_OIDS:
+            vals = np.array([float(v) if v is not None else 0.0
+                             for v in raw])
+        elif oid in (20, 21, 23):
+            vals = np.array([int(v) if v is not None else 0 for v in raw],
+                            dtype=np.int64)
+        elif oid == 1082:
+            vals = np.array([int(np.datetime64(v.decode(), "D")
+                                 .astype(np.int32)) if v is not None
+                             else 0 for v in raw], dtype=np.int32)
+        elif oid == 1114:
+            vals = np.array([int(np.datetime64(v.decode().replace(" ", "T"),
+                                               "us").astype(np.int64))
+                             if v is not None else 0 for v in raw],
+                            dtype=np.int64)
+        else:
+            d = dicts[aliases.get(name, name)]
+            vals = np.array([d.get(v) if v is not None else 0
+                             for v in raw], dtype=np.int32)
+        out[name] = (vals, valid)
+    return SimpleNamespace(cols=out, num_rows=len(rows))
+
+
+def create_table_sql(name, schema, pk) -> str:
+    """CREATE TABLE for ``schema``; decimals spelled ``decimal(p,s)`` (the
+    scheme's own ``decimal(s)`` spelling means scale 0 in DDL)."""
+    from ydb_tpu_torch.scheme.model import type_to_str
+
+    def spell(t):
+        return (f"decimal(18,{t.scale})" if t.is_decimal
+                else type_to_str(t))
+
+    cols = ", ".join(f"{f.name} {spell(f.type)}"
+                     + ("" if f.nullable else " NOT NULL")
+                     for f in schema.fields)
+    return f"CREATE TABLE {name} ({cols}, PRIMARY KEY ({', '.join(pk)}))"
+
+
+def bulk_load(cluster, name, cols, dicts, lo=0, hi=None) -> float:
+    """Rows ``lo:hi`` of ``cols`` into the cluster's table ``name``
+    through ``ShardedTable.insert`` (the reference's BulkUpsert path):
+    string columns go in as ids of ``dicts``, whose values were entered
+    into the cluster's dictionaries first, in order, so the ids agree.
+    Returns the seconds."""
+    t0 = time.perf_counter()
+    t = cluster.tables[name]
+    for f in t.schema.fields:
+        if f.type.is_string:
+            d = cluster.dicts.for_column(f.name)
+            src = dicts[f.name].values
+            if len(d) < len(src):
+                d.encode(list(src[len(d):]))
+            assert len(d) == len(src), (name, f.name)
+    t.insert({k: np.asarray(v)[lo:hi] for k, v in cols.items()})
+    cluster._invalidate_plans()
+    return time.perf_counter() - t0
+
+
+def insert_values_sql(name, schema, cols, dicts, rows) -> str:
+    """An INSERT statement with the literal values of ``rows`` of
+    ``cols`` (the ninth connection's writes)."""
+    out = []
+    for r in rows:
+        vals = []
+        for f in schema.fields:
+            v = cols[f.name][r]
+            if f.type.is_string:
+                s = dicts[f.name].values[int(v)].decode("latin1")
+                vals.append("'" + s.replace("'", "''") + "'")
+            elif f.type.kind.name == "DATE":
+                vals.append(f"date '{np.datetime64(int(v), 'D')}'")
+            else:
+                vals.append(str(int(v)))
+        out.append("(" + ", ".join(vals) + ")")
+    return f"INSERT INTO {name} VALUES " + ", ".join(out)
+
+
+def pct(xs, q) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def concurrent_queries(port, work, startup=None):
+    """``work[i]`` (a list of SQL texts) on client connection i, all
+    connections started together; per statement (client, sql, rows,
+    cols, errors, seconds) and the wall seconds of the round."""
+    import threading
+
+    clients = [PgClient(port, startup) for _ in work]
+    barrier = threading.Barrier(len(work))
+    out = [[] for _ in work]
+    fail = []
+
+    def run(i):
+        try:
+            barrier.wait()
+            for sql in work[i]:
+                t0 = time.perf_counter()
+                rows, cols, _tags, errors = clients[i].query(sql)
+                out[i].append((i, sql, rows, cols, errors,
+                               time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 - raised below
+            fail.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(work))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    if fail:
+        raise fail[0]
+    return [s for per in out for s in per], wall
+
+
+def waves(port, sql, half, between):
+    """``sql`` on ``half`` connections, then ``between()`` (the ninth
+    connection's INSERT) once they have all sent it, then ``sql`` on
+    ``half`` more: with a window longer than the INSERT, one batch group
+    whose members read two snapshots. Statements as
+    ``concurrent_queries`` returns them."""
+    import threading
+
+    clients = [PgClient(port) for _ in range(2 * half)]
+    sent = threading.Semaphore(0)
+    out, fail = [], []
+
+    def run(c):
+        try:
+            sent.release()
+            t0 = time.perf_counter()
+            rows, cols, _tags, errors = c.query(sql)
+            out.append((0, sql, rows, cols, errors,
+                        time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 - raised below
+            fail.append(e)
+
+    t0 = time.perf_counter()
+    first = [threading.Thread(target=run, args=(c,))
+             for c in clients[:half]]
+    for t in first:
+        t.start()
+    for _ in first:
+        sent.acquire()
+    time.sleep(0.02)  # the first wave reaches its snapshot
+    between()
+    second = [threading.Thread(target=run, args=(c,))
+              for c in clients[half:]]
+    for t in second:
+        t.start()
+    for t in first + second:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    if fail:
+        raise fail[0]
+    return out, wall
+
+
+class armed:
+    """The cluster's batcher at ``window_ms`` / ``max_batch`` for a block
+    (what ``YDB_TPU_TORCH_BATCH_WINDOW_MS`` / ``_BATCH_MAX`` set at
+    boot), restored after."""
+
+    def __init__(self, cluster, window_ms, max_batch=BATCH_MAX):
+        self.bt = cluster.batcher
+        self.want = (float(window_ms), max_batch)
+
+    def __enter__(self):
+        self.saved = (self.bt.window_ms, self.bt.max_batch)
+        self.bt.window_ms, self.bt.max_batch = self.want
+        return self.bt
+
+    def __exit__(self, *exc):
+        self.bt.window_ms, self.bt.max_batch = self.saved
+        return False
+
+
+def serving_boot(root, dev):
+    from ydb_tpu_torch.api.pgwire import PgWireServer
+    from ydb_tpu_torch.config import AppConfig
+    from ydb_tpu_torch.engine.blobs import DirBlobStore
+    from ydb_tpu_torch.kqp.session import Cluster
+
+    t0 = time.perf_counter()
+    cluster = Cluster(store=DirBlobStore(root), device=dev,
+                      config=AppConfig())
+    srv = PgWireServer(cluster, port=0).start()
+    return cluster, srv, time.perf_counter() - t0
+
+
+def serving_tpch(cluster, srv, sf, dev, warm=SERVING_WARM) -> tuple:
+    """Step 2: the eight TPC-H tables created over the wire, bulk loaded,
+    the 22 queries over pgwire (first and warm), each equal to
+    ``execute_plan`` over host ColumnSources of the same tables."""
+    from ydb_tpu_torch.engine.scan import ColumnSource
+    from ydb_tpu_torch.plan import Database
+    from ydb_tpu_torch.workload import tpch
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    tp = tpch.TpchData(sf=sf, seed=42)
+    cl = PgClient(srv.port)
+    load_s = {}
+    for t, cols in tp.tables.items():
+        cl.ok(create_table_sql(t, tp.schema(t), tpch.PRIMARY_KEYS[t]))
+        load_s[t] = bulk_load(cluster, t, cols, tp.dicts)
+    log(f"serving: TPC-H sf {sf} created over pgwire and bulk loaded "
+        f"({cluster.n_shards} shards a table) in {sum(load_s.values()):.2f} "
+        f"s")
+    host = Database(sources={t: ColumnSource(c, tp.schema(t), cluster.dicts)
+                             for t, c in tp.tables.items()},
+                    dicts=cluster.dicts, device=dev)
+    catalog = cluster.catalog()
+    rows_out = []
+    for name in sorted(TPCH, key=lambda q: int(q[1:])):
+        sql = TPCH[name]
+        hpq = plan_sql(sql, host, catalog)
+        hres = run_sql(hpq, host)
+        hres.dicts = cluster.result_dicts(hres.schema, hpq.dict_aliases)
+        want = wire_rows(hres)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with routed() as seen:
+            t0 = time.perf_counter()
+            rows, cols = cl.ok(sql)
+            first_s = time.perf_counter() - t0
+        first = cluster.profiles.recent()[-1]
+        executor = seen[-1] if seen else "walk"
+        same_wire(rows, want, cols, name, rtol=1e-12)
+        warm_s = []
+        for _ in range(warm if first_s <= SERVING_SLOW_FIRST_S else 1):
+            t0 = time.perf_counter()
+            again, _ = cl.ok(sql)
+            warm_s.append(time.perf_counter() - t0)
+            same_wire(again, rows, cols, name)
+        last = cluster.profiles.recent()[-1]
+        row = {"query": name, "sf": sf, "executor": executor,
+               "rows": len(rows), "first_s": first_s,
+               "warm_median_s": statistics.median(warm_s),
+               "warm_s": warm_s,
+               "plan_cache": [first.plan_cache, last.plan_cache],
+               "compile_cache": [first.compile_cache, last.compile_cache],
+               "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+               "equals_host_sources": True}
+        rows_out.append(row)
+        emit({"serving_sql": row})
+    cl.close()
+    log(f"serving TPC-H sf {sf}: 22 queries over pgwire equal host "
+        f"sources; first runs {sum(r['first_s'] for r in rows_out):.3f} s, "
+        f"warm medians {sum(r['warm_median_s'] for r in rows_out):.3f} s "
+        f"summed")
+    return rows_out, tp
+
+
+def serving_goldens(root, dev) -> dict:
+    """Step 2, last part: the 22 golden digests at sf 0.01 through a second
+    port Cluster over pgwire."""
+    from ydb_tpu_torch.workload import tpch
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    golden = json.load(open(os.path.join(HERE, "tests", "golden_tpch.json")))
+    tp = tpch.TpchData(sf=golden["sf"], seed=golden["seed"])
+    cluster, srv, _ = serving_boot(root, dev)
+    try:
+        cl = PgClient(srv.port)
+        for t, cols in tp.tables.items():
+            cl.ok(create_table_sql(t, tp.schema(t), tpch.PRIMARY_KEYS[t]))
+            bulk_load(cluster, t, cols, tp.dicts)
+        for name, want in golden["queries"].items():
+            rows, cols = cl.ok(TPCH[name])
+            assert len(rows) == want["rows"], (name, len(rows))
+            assert wire_digest(rows, cols) == want["sha"], name
+        cl.close()
+    finally:
+        srv.stop()
+        cluster.stop()
+    log(f"serving goldens: {len(golden['queries'])} queries at sf "
+        f"{golden['sf']} over pgwire match tests/golden_tpch.json")
+    return {"queries": len(golden["queries"]), "sf": golden["sf"]}
+
+
+def serving_clickbench(cluster, srv, cb) -> list:
+    """Step 3a: hits created over the wire and bulk loaded; the 43 queries
+    over pgwire, each equal to ``reference_answers``."""
+    from types import SimpleNamespace
+
+    from ydb_tpu_torch.workload import clickbench
+
+    cl = PgClient(srv.port)
+    cl.ok(create_table_sql("hits", clickbench.HITS_SCHEMA, ("WatchID",)))
+    bulk_load(cluster, "hits", cb.hits, cb.dicts)
+    want = clickbench.reference_answers(cb)
+    out = []
+    for name in sorted(clickbench.QUERIES, key=lambda q: int(q[1:])):
+        sql = clickbench.QUERIES[name]
+        with routed() as seen:
+            t0 = time.perf_counter()
+            rows, cols = cl.ok(sql)
+            first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again, _ = cl.ok(sql)
+        warm_s = time.perf_counter() - t0
+        same_wire(again, rows, cols, name)
+        # derived string columns (e.g. a cut URL host) get dictionaries
+        # of the cluster's at plan time
+        aliases = cluster.plan(sql)[1]
+        clickbench._verify(
+            name, wire_table(rows, cols, cluster.dicts, aliases),
+            want[name], SimpleNamespace(hits=cb.hits, dicts=cluster.dicts),
+            SimpleNamespace(dict_aliases=aliases))
+        row = {"query": name, "hits_rows": len(cb.hits["WatchID"]),
+               "executor": seen[-1] if seen else "walk",
+               "rows": len(rows), "first_s": first_s, "warm_s": warm_s,
+               "canondata_checked": True}
+        out.append(row)
+        emit({"serving_clickbench": row})
+    cl.close()
+    routes = collections.Counter(r["executor"] for r in out)
+    log(f"serving ClickBench at {len(cb.hits['WatchID'])} rows: 43 queries "
+        f"over pgwire equal reference_answers; executors {dict(routes)}")
+    return out
+
+
+def batch_stats(rounds, wall) -> dict:
+    lat = [s[5] for r in rounds for s in r]
+    n = len(lat)
+    return {"statements": n, "seconds": wall,
+            "statements_per_s": n / wall,
+            "p50_s": pct(lat, 0.5), "p99_s": pct(lat, 0.99)}
+
+
+def serving_batched(cluster, srv, cb) -> dict:
+    """Step 3b: the batched tier. Dedup: BATCH_CLIENTS connections send the
+    same q33 at once, serial (window 0) against batched; stacked: a mix
+    of q33/q36/q38 while a ninth connection inserts rows between
+    arrivals. Every batched result equals the serial result at the same
+    snapshot, byte for byte."""
+    import threading
+
+    from ydb_tpu_torch.plan import execute_plan, to_host
+    from ydb_tpu_torch.workload import clickbench
+
+    q = clickbench.QUERIES
+    bt = cluster.batcher
+    out: dict = {}
+    want33 = None
+    serial, batched = [], []
+    serial_wall = batched_wall = 0.0
+    snaps = []
+    for r in range(BATCH_ROUNDS):
+        # serial and batched rounds in turn, so both see the same card
+        stmts, wall = concurrent_queries(
+            srv.port, [[q["q33"]]] * BATCH_CLIENTS)
+        serial.append(stmts)
+        serial_wall += wall
+        snaps.append(bt.snapshot())
+        with armed(cluster, BATCH_WINDOW_MS):
+            stmts, wall = concurrent_queries(
+                srv.port, [[q["q33"]]] * BATCH_CLIENTS)
+        batched.append(stmts)
+        batched_wall += wall
+    for s in [s for r in serial + batched for s in r]:
+        assert not s[4], s[4]
+        if want33 is None:
+            want33 = s[2]
+        assert s[2] == want33, "q33 differs between connections"
+    snap = bt.snapshot()
+    assert snaps[0]["batches"] == 0, "the window-0 rounds batched"
+    assert snap["dedup_dispatches"] > 0, snap
+    out["dedup"] = {"serial": batch_stats(serial, serial_wall),
+                    "batched": batch_stats(batched, batched_wall),
+                    "batcher": snap}
+    log(f"serving batched dedup: q33 x {BATCH_CLIENTS} connections x "
+        f"{BATCH_ROUNDS} rounds, serial {out['dedup']['serial']} vs "
+        f"batched {out['dedup']['batched']}; batcher {snap}")
+
+    # stacked: hits reloaded short of the shape class's top, then grown
+    # over the wire while eight connections read
+    cl = PgClient(srv.port)
+    cl.ok("DROP TABLE hits")
+    cl.ok(create_table_sql("hits", clickbench.HITS_SCHEMA, ("WatchID",)))
+    n = len(cb.hits["WatchID"])
+    bulk_load(cluster, "hits", cb.hits, cb.dicts, 0, n - STACKED_HOLDBACK)
+    pool0 = cluster._compile_cache.pool_bytes()
+    recorded = []
+    rec_lock = threading.Lock()
+    tls = threading.local()
+    real_snapshot_db = cluster.snapshot_db
+    real_execute = type(cluster.session()).execute
+
+    def snapshot_db(snap=None):
+        snap = cluster.coordinator.read_snapshot() if snap is None else snap
+        tls.snap = snap
+        return real_snapshot_db(snap)
+
+    def execute(sess, sql, *a, **kw):
+        tls.snap = None
+        res = real_execute(sess, sql, *a, **kw)
+        if sql.lstrip().upper().startswith("SELECT"):
+            with rec_lock:
+                recorded.append((sql, tls.snap, res))
+        return res
+
+    cluster.snapshot_db = snapshot_db
+    session_cls = type(cluster.session())
+    session_cls.execute = execute
+    next_row = [n - STACKED_HOLDBACK]
+    inserts = []
+    ins = PgClient(srv.port)
+
+    def insert_rows():
+        lo = next_row[0]
+        hi = min(n, lo + STACKED_INSERT_ROWS)
+        ins.ok(insert_values_sql("hits", clickbench.HITS_SCHEMA, cb.hits,
+                                 cb.dicts, range(lo, hi)))
+        next_row[0] = hi
+        inserts.append(hi - lo)
+
+    s0 = bt.snapshot()
+    stacked_rounds, wall_sum = [], 0.0
+    half = BATCH_CLIENTS // 2
+    try:
+        with armed(cluster, STACKED_WINDOW_MS):
+            for name in ("q33", "q36", "q38"):
+                # half the connections arrive and read the table; the
+                # ninth commits rows; the other half arrive and read the
+                # grown table: one group, two snapshots
+                stmts, wall = waves(srv.port, q[name], half, insert_rows)
+                stacked_rounds.append(stmts)
+                wall_sum += wall
+    finally:
+        ins.close()
+        cluster.snapshot_db = real_snapshot_db
+        session_cls.execute = real_execute
+    for s in [s for r in stacked_rounds for s in r]:
+        assert not s[4], s[4]
+    snap = bt.snapshot()
+    assert snap["stacked_dispatches"] >= s0["stacked_dispatches"] + 3, snap
+    assert len({r[1] for r in recorded}) >= 4, "one snapshot per wave"
+    # every recorded SELECT against the serial path at its snapshot
+    checked = 0
+    for sql, snapno, res in recorded:
+        plan = cluster.plan(sql)[0]
+        serial_res = to_host(execute_plan(plan, cluster.snapshot_db(snapno)))
+        for col in res.schema.names:
+            (gv, go), (wv, wo) = res.cols[col], serial_res.cols[col]
+            assert np.array_equal(go, wo) and np.array_equal(
+                np.asarray(gv)[go], np.asarray(wv)[wo]), (sql[:40], col)
+        checked += 1
+    pool_before = cluster._compile_cache.pool_bytes()
+    cluster._invalidate_plans()
+    torch.cuda.synchronize()
+    pool_after = cluster._compile_cache.pool_bytes()
+    out["stacked"] = {
+        "rounds": len(stacked_rounds), "window_ms": STACKED_WINDOW_MS,
+        "rows_inserted": sum(inserts),
+        "inserts": len(inserts), "checked_against_serial": checked,
+        **batch_stats(stacked_rounds, wall_sum),
+        "batcher": snap,
+        "graph_captures_per_batch_size": dict(bt.graph_captures),
+        "capture_dispatch_seconds": bt.capture_seconds,
+        "pool_bytes_at_reload": pool0,
+        "pool_bytes_before_invalidation": pool_before,
+        "pool_bytes_after_invalidation": pool_after}
+    assert pool_after == 0, pool_after
+    log(f"serving batched stacked: {out['stacked']}")
+    return out
+
+
+def serving_tenants(cluster, srv) -> dict:
+    """Step 4: two tenants behind the front door."""
+    from ydb_tpu_torch import serving
+    from ydb_tpu_torch.workload import clickbench
+
+    reg = serving.TenantRegistry()
+    reg.register("gold", weight=3.0, max_inflight=4, queue_size=8)
+    reg.register("bronze", weight=1.0, max_inflight=1, queue_size=0)
+    fd = serving.install(cluster, reg)
+    q = clickbench.QUERIES
+    base = fd.snapshot()
+    stmts, _ = concurrent_queries(srv.port, [[q["q33"], q["q36"]]] * 4,
+                                  startup={"tenant": "gold"})
+    assert all(not s[4] for s in stmts), [s[4] for s in stmts]
+    # a held bronze seat: the next bronze statement is over its cap
+    held = fd.admit("bronze")
+    try:
+        cl = PgClient(srv.port, {"tenant": "bronze"})
+        _, _, _, errors = cl.query(q["q33"])
+        cl.close()
+    finally:
+        held.release()
+    assert errors and "bronze" in errors[0], errors
+    burst, _ = concurrent_queries(srv.port, [[q["q36"]]] * 6,
+                                  startup={"tenant": "bronze"})
+    shed = [s[4][0] for s in burst if s[4]]
+    assert all("bronze" in e for e in shed), shed
+    snap = fd.snapshot()
+    assert snap["gold"]["admitted"] >= base["gold"]["admitted"] + 8, snap
+    assert snap["bronze"]["shed"] >= 1, snap
+    gauges = {}
+    for tenant in ("gold", "bronze"):
+        g = cluster.counters.group(tenant=tenant, query_class="select_agg")
+        gauges[tenant] = {"p50_s": g.counter("query_latency_p50").value,
+                          "p99_s": g.counter("query_latency_p99").value}
+    assert gauges["gold"]["p50_s"] > 0 and gauges["gold"]["p99_s"] > 0, \
+        gauges
+    cluster.front_door = None
+    cluster.workload = None
+    out = {"front_door": snap, "latency": gauges,
+           "held_seat_error": errors[0], "burst_shed": len(shed)}
+    log(f"serving tenants: {out}")
+    return out
+
+
+def serving_kernels(cluster, ck) -> dict:
+    """Step 5, second part: q33 and q36 through a Session with fusion off,
+    on the fused group-by lowering (``grouped_sum_multi``) and on the
+    per-aggregate one (``grouped_sum``), every kernel call held against
+    its plain version (these launches are not counted)."""
+    from ydb_tpu_torch.ssa import kernels
+    from ydb_tpu_torch.workload import clickbench
+
+    s = cluster.session()
+    out = {}
+    try:
+        with fusion_force(False):
+            for lowering, force, kernel in (
+                    ("fused", None, "grouped_sum_multi"),
+                    ("peragg", False, "grouped_sum")):
+                kernels.FUSED_FORCE = force
+                for name in ("q33", "q36"):
+                    sql = clickbench.QUERIES[name]
+                    s.execute(sql)  # compiles outside the checked run
+                    row = checked_kernel_calls(
+                        ck, lambda sql=sql: s.execute(sql))
+                    assert row[kernel]["calls"] > 0, (name, row)
+                    out[f"{name}_{lowering}"] = row
+    finally:
+        kernels.FUSED_FORCE = None
+    cluster._invalidate_plans()
+    emit({"serving_kernel_check": out})
+    return out
+
+
+def serving_concurrency(cluster, cb) -> dict:
+    """Step 7: eight threads run walk, DQ and fused statements through
+    Sessions while a plan not seen before is captured; every result
+    equals its serial answer."""
+    import threading
+
+    from ydb_tpu_torch.workload import clickbench
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    stmts = {"walk_q1": TPCH["q1"], "walk_q6": TPCH["q6"],
+             "dq_q3": TPCH["q3"], "dq_q10": TPCH["q10"],
+             "fused_q33": clickbench.QUERIES["q33"],
+             "fused_q36": clickbench.QUERIES["q36"],
+             "fused_q7": clickbench.QUERIES["q7"]}
+    s = cluster.session()
+    want = {k: wire_rows(s.execute(v)) for k, v in stmts.items()}
+    fresh = ("select URL, count(*) as c from hits where RegionID <> 0 "
+             "group by URL order by c desc, URL limit 12")
+    names = list(stmts)
+    errors, got = [], []
+    barrier = threading.Barrier(9)
+
+    def worker(i):
+        try:
+            sess = cluster.session()
+            barrier.wait()
+            for k in range(3):
+                name = names[(i + k) % len(names)]
+                got.append((name, wire_rows(sess.execute(stmts[name]))))
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    fresh_out = []
+
+    def capturer():
+        try:
+            sess = cluster.session()
+            barrier.wait()
+            time.sleep(0.01)
+            fresh_out.append(wire_rows(sess.execute(fresh)))
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    captures0 = sum(p.captures for p in _fused_in(cluster))
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(8)] + [threading.Thread(target=capturer)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for name, rows in got:
+        assert rows == want[name], name
+    assert fresh_out and fresh_out[0] == wire_rows(s.execute(fresh))
+    out = {"statements": len(got) + 1, "seconds": wall,
+           "captures": sum(p.captures for p in _fused_in(cluster))
+           - captures0}
+    assert out["captures"] >= 1, out
+    log(f"serving concurrency: {out}")
+    return out
+
+
+def _fused_in(cluster) -> list:
+    from ydb_tpu_torch.ssa.plan_fuse import FusedPlan
+
+    return [v for v in dict.values(cluster._compile_cache)
+            if isinstance(v, FusedPlan)]
+
+
+def serving_reboot(root, dev, want: dict) -> dict:
+    """Step 6: a second Cluster booted from the same directory answers
+    ``want`` (sql -> DataRows) byte for byte over a new server."""
+    cluster, srv, boot_s = serving_boot(root, dev)
+    try:
+        cl = PgClient(srv.port)
+        for sql, rows in want.items():
+            got, _ = cl.ok(sql)
+            assert got == rows, sql[:60]
+        cl.close()
+    finally:
+        srv.stop()
+        cluster.stop()
+    log(f"serving reboot: booted in {boot_s:.2f} s, {len(want)} statements "
+        f"bit-identical")
+    return {"boot_s": boot_s, "statements": len(want)}
+
+
+def serving_phase(dev, ck, sf: float = SERVING_SF,
+                  hits_rows: int = SERVING_HITS_ROWS) -> dict:
+    """Phase 10: the session and serving plane (see the module docstring).
+    Returns every measurement; ``launches`` are the CUDA kernels'
+    launches of steps 2-3."""
+    import shutil
+    import tempfile
+
+    from ydb_tpu_torch.workload import clickbench
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="serving_")
+    out: dict = {}
+    try:
+        cluster, srv, out["boot_s"] = serving_boot(
+            os.path.join(root, "main"), dev)
+        ck.reset_launches()
+        out["tpch"], tp = serving_tpch(cluster, srv, sf, dev)
+        cb = clickbench.ClickBenchData(rows=hits_rows, seed=42)
+        out["clickbench"] = serving_clickbench(cluster, srv, cb)
+        out["batched"] = serving_batched(cluster, srv, cb)
+        out["launches"] = dict(ck.LAUNCHES)
+        log(f"serving launches (steps 2-3, a replay counting the kernels "
+            f"its graph holds): {out['launches']}")
+        assert out["launches"]["grouped_sum_multi"] > 0, out["launches"]
+        out["kernel_check"] = serving_kernels(cluster, ck)
+        out["concurrency"] = serving_concurrency(cluster, cb)
+        out["tenants"] = serving_tenants(cluster, srv)
+        cl = PgClient(srv.port)
+        want = {sql: cl.ok(sql)[0] for sql in (
+            TPCH["q1"], TPCH["q6"], clickbench.QUERIES["q33"])}
+        cl.close()
+        srv.stop()
+        cluster.stop()
+        del cluster
+        out["reboot"] = serving_reboot(os.path.join(root, "main"), dev,
+                                       want)
+        out["goldens"] = serving_goldens(os.path.join(root, "golden"), dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serving phase: {out['seconds']:.1f} s")
+    return out
+
+
 def tpch_days(s: str) -> int:
     return int(np.datetime64(s, "D").astype(np.int32))
 
@@ -2247,6 +3169,9 @@ def main(argv=None) -> int:
     ap.add_argument("--storage-sql-sf", type=float, default=STORAGE_SQL_SF,
                     help="TPC-H scale of phase 9's SQL over sharded tables "
                     f"(default {STORAGE_SQL_SF})")
+    ap.add_argument("--serving-sf", type=float, default=SERVING_SF,
+                    help="TPC-H scale of phase 10's serving path "
+                    f"(default {SERVING_SF})")
     ap.add_argument("--baseline-source", default=None,
                     help="an earlier grouped_sum.cu with the zero-filled-"
                     "output interface, timed beside the kernels in the "
@@ -2488,11 +3413,23 @@ def main(argv=None) -> int:
     # ---- phase 9: the ColumnShard storage path ----
     storage = storage_phase(dev, ck, tp, cb, args.storage_sql_sf,
                             (want1, want6))
+    del tp, cb
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the session and serving plane ----
+    serving = serving_phase(dev, ck, args.serving_sf)
     for row in kernel_rows:
         row["sql_launches"] = sql_launches[row["name"]]
         row["dq_launches"] = dq_launches[row["name"]]
         row["fused_launches"] = fusion["kernel_launches"][row["name"]]
         row["storage_launches"] = storage["launches"][row["name"]]
+        row["serving_launches"] = serving["launches"][row["name"]]
+        row["serving_checked_calls"] = sum(
+            q[row["name"]]["calls"]
+            for q in serving["kernel_check"].values())
+        row["max_abs_err"] = max(row["max_abs_err"], *(
+            q[row["name"]]["max_abs_err"]
+            for q in serving["kernel_check"].values()))
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
@@ -2501,7 +3438,7 @@ def main(argv=None) -> int:
                   sql=sql_rows, sql_sf=sql_tp.sf,
                   sql_golden_float_exceptions=exceptions,
                   sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion,
-                  tpcds=tpcds_rows, storage=storage)
+                  tpcds=tpcds_rows, storage=storage, serving=serving)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

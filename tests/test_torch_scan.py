@@ -241,6 +241,21 @@ STORAGE_PATH_MODULES = (
     "ydb_tpu_torch.engine.staging", "ydb_tpu_torch.engine.reader",
     "ydb_tpu_torch.engine.stream_sched", "ydb_tpu_torch.engine.shard",
 )
+#: the session and serving plane's modules, likewise
+SERVING_PATH_MODULES = (
+    "ydb_tpu_torch.config", "ydb_tpu_torch.obs.counters",
+    "ydb_tpu_torch.obs.tracing", "ydb_tpu_torch.obs.metering",
+    "ydb_tpu_torch.obs.profile", "ydb_tpu_torch.tablet",
+    "ydb_tpu_torch.tablet.localdb", "ydb_tpu_torch.tablet.executor",
+    "ydb_tpu_torch.scheme", "ydb_tpu_torch.scheme.model",
+    "ydb_tpu_torch.scheme.shard", "ydb_tpu_torch.tx",
+    "ydb_tpu_torch.tx.coordinator", "ydb_tpu_torch.tx.sharded",
+    "ydb_tpu_torch.engine.scanshare", "ydb_tpu_torch.kqp",
+    "ydb_tpu_torch.kqp.rm", "ydb_tpu_torch.kqp.batch",
+    "ydb_tpu_torch.kqp.session", "ydb_tpu_torch.serving",
+    "ydb_tpu_torch.serving.tenants", "ydb_tpu_torch.serving.admission",
+    "ydb_tpu_torch.api", "ydb_tpu_torch.api.pgwire",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -263,10 +278,11 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         assert not missing, missing
         print(len(names))
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
-           + STORAGE_PATH_MODULES,))
+           + STORAGE_PATH_MODULES + SERVING_PATH_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= (15 + len(SQL_PATH_MODULES)
                                            + len(DQ_PATH_MODULES) + 1
-                                           + len(STORAGE_PATH_MODULES))
+                                           + len(STORAGE_PATH_MODULES)
+                                           + len(SERVING_PATH_MODULES))

@@ -8,6 +8,7 @@ and no explicit CPU the entry points raise instead of falling back.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -21,6 +22,108 @@ DEFAULT_DEVICE = "cuda"
 #: API meanwhile, and the warm-up's ``set_sync_debug_mode("error")`` is
 #: process-wide.
 capture_lock = threading.RLock()
+
+
+class DeviceWorkLock:
+    """Reader-writer lock between statements' device work and CUDA graph
+    captures.
+
+    Statements hold it shared around the device work they issue
+    (``plan.executor.execute_plan``, ``to_host``, the batcher's
+    dispatch), so statements on different threads run at once. A CUDA
+    graph capture (its warm-up under the process-wide
+    ``set_sync_debug_mode("error")`` included) holds it exclusively: no
+    other statement thread calls the CUDA API meanwhile, which would
+    break the capture or trip the warm-up's sync check. Worker threads
+    are kept out by ``capture_lock`` as before.
+
+    Shared holds are re-entrant per thread. ``exclusive`` gives up the
+    calling thread's own shared holds while it waits and takes them back
+    after, so a statement that needs a capture does not wait for itself;
+    waiting writers hold back new shared entries (no starvation).
+    """
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._readers: dict[int, int] = {}
+        self._writer: int | None = None
+        self._writer_depth = 0
+        self._writers_waiting = 0
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cv:
+            if self._writer != me and not self._readers.get(me):
+                while self._writer is not None or self._writers_waiting:
+                    self._cv.wait()
+            self._readers[me] = self._readers.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                left = self._readers[me] - 1
+                if left:
+                    self._readers[me] = left
+                else:
+                    del self._readers[me]
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        with self._cv:
+            held = 0
+            if self._writer == me:
+                self._writer_depth += 1
+            else:
+                held = self._readers.pop(me, 0)
+                if held:
+                    self._cv.notify_all()
+                self._writers_waiting += 1
+                try:
+                    while self._writer is not None or self._readers:
+                        self._cv.wait()
+                finally:
+                    self._writers_waiting -= 1
+                self._writer = me
+                self._writer_depth = 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._writer_depth -= 1
+                if self._writer_depth == 0:
+                    self._writer = None
+                    if held:  # back to the holds it came in with
+                        self._readers[me] = held
+                    self._cv.notify_all()
+
+    def try_exclusive(self) -> bool:
+        """Take the lock exclusively when that needs no wait (no other
+        thread holds it); the caller then ``release_exclusive()``s."""
+        me = threading.get_ident()
+        with self._cv:
+            if self._writer == me:
+                self._writer_depth += 1
+                return True
+            if self._writer is not None or any(
+                    t != me for t in self._readers):
+                return False
+            self._writer = me
+            self._writer_depth = 1
+            return True
+
+    def release_exclusive(self) -> None:
+        with self._cv:
+            self._writer_depth -= 1
+            if self._writer_depth == 0:
+                self._writer = None
+                self._cv.notify_all()
+
+
+#: the process's one device work lock (see ``DeviceWorkLock``)
+work_lock = DeviceWorkLock()
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:

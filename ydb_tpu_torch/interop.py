@@ -1,8 +1,10 @@
 """State carried across from the JAX package, by plain values only.
 
-``source_from_numpy`` builds the port's ``ColumnSource`` (with its
-``DictionarySet``) from numpy arrays, ``(name, kind, scale, nullable)``
-tuples and per-column dictionary values. ``program_from_reference``
+``blob_store_from_reference`` copies a reference blob store into the
+port's ``MemBlobStore``. ``source_from_numpy`` builds the port's
+``ColumnSource`` (with its ``DictionarySet``) from numpy arrays,
+``(name, kind, scale, nullable)`` tuples and per-column dictionary
+values. ``program_from_reference``
 converts a reference ``Program`` (or any expression, step, type or
 schema) into the port's classes by duck typing: class name +
 ``dataclasses.fields``, enums by member name. Nothing here imports the
@@ -92,3 +94,17 @@ def source_from_numpy(
             raise ValueError(f"dictionary of {col} repeats a value")
     return ColumnSource(dict(columns), schema_from_spec(schema_spec), dicts,
                         dict(validity) if validity else None)
+
+
+def blob_store_from_reference(store):
+    """A port ``MemBlobStore`` holding every blob of a reference blob
+    store (anything with ``list(prefix)`` and ``get(blob_id)``), key by
+    key, bytes as they are: both packages write the same layout, so a
+    port ``Cluster(store=...)`` boots from it. A ``DirBlobStore``
+    directory needs no copy: both packages open the same directory."""
+    from ydb_tpu_torch.engine.blobs import MemBlobStore
+
+    out = MemBlobStore()
+    for blob_id in store.list(""):
+        out.put(blob_id, bytes(store.get(blob_id)))
+    return out

@@ -1,2 +1,4 @@
-"""Observability: the scan's per-stage timer (the rest of the reference's
-``obs/`` waits for ROADMAP.md queue A item 7)."""
+"""Observability: counters, tracing spans, query profiles, metering and
+the scan's per-stage timer. The timeline ring, the probes beyond
+``StageTimer``, the kernel bench and the viewer wait for ROADMAP.md
+queue A items 7 and 9."""

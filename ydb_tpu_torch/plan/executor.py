@@ -26,8 +26,14 @@ partition. DQ join stages size their output exactly from the match
 count, so the reference's statistics-based join sizing
 (``Database.table_stats`` into ``plan_to_stages(estimator=...)``) has
 nothing to size here and is left out. Not in the port yet, each with
-its ROADMAP.md queue A item: tracing, probes and the ``fuse.trace``
-chaos hook (item 7), and the mesh executor (item 8).
+its ROADMAP.md queue A item: probes and the ``fuse.trace`` chaos hook,
+and the mesh executor.
+
+Spans (``obs/tracing.py``; no-ops outside an activated trace): ``scan``,
+``transform``, ``dq`` and ``plan.fuse``, with the compile-cache hit or
+miss the query profile reads. A top-level ``execute_plan`` and
+``to_host`` hold ``device.work_lock`` shared, so a CUDA graph capture on
+another thread never overlaps their device work.
 """
 
 from __future__ import annotations
@@ -41,9 +47,10 @@ from ydb_tpu_torch.analysis.verify import check_program
 from ydb_tpu_torch.blocks.block import TableBlock, concat_blocks, device_aux
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
 from ydb_tpu_torch.chaos import deadline as statement_deadline
-from ydb_tpu_torch.device import resolve_device
+from ydb_tpu_torch.device import resolve_device, work_lock
 from ydb_tpu_torch.engine.oracle import OracleTable
 from ydb_tpu_torch.engine.scan import ColumnSource, ScanExecutor
+from ydb_tpu_torch.obs import tracing
 from ydb_tpu_torch.plan.nodes import (
     Concat,
     ExpandJoin,
@@ -170,8 +177,6 @@ def _execute_plan_dq(plan: PlanNode, db: Database) -> TableBlock | None:
     """Lower to DQ stages and run on an in-process actor system, every
     block on the database's device. Returns None when the plan does not
     lower (the caller falls back to the walk)."""
-    from ydb_tpu_torch.dq import compute
-    from ydb_tpu_torch.kqp.dq_lower import plan_to_stages
     from ydb_tpu_torch.runtime.actors import ActorSystem
 
     seen: set[int] = set()
@@ -189,6 +194,14 @@ def _execute_plan_dq(plan: PlanNode, db: Database) -> TableBlock | None:
                 return None
             parts[node.table] = _partition_for_dq(src)
     rt = ActorSystem(node=1)
+    with tracing.span("dq"):
+        return _run_dq_graph(plan, parts, rt, db)
+
+
+def _run_dq_graph(plan, parts, rt, db: Database) -> TableBlock | None:
+    from ydb_tpu_torch.dq import compute
+    from ydb_tpu_torch.kqp.dq_lower import plan_to_stages
+
     try:
         stages = plan_to_stages(plan, n_tasks=DQ_TASKS)
         handle = compute.build_stage_graph(
@@ -227,22 +240,8 @@ def execute_plan(plan: PlanNode, db: Database,
     ``_memo`` dedupes shared subtrees (a CTE referenced from several
     places executes once per statement)."""
     if _memo is None:
-        if (use_dq if use_dq is not None else DQ_ON) and any(
-                isinstance(n, (LookupJoin, ExpandJoin))
-                for n in _plan_nodes(plan)):
-            out = _execute_plan_dq(plan, db)
-            if out is not None:
-                return out
-        # whole-plan fusion: one dispatch for the whole tree when it is
-        # fusible. A bare TableScan is already a single fragment — the
-        # walk's streaming scan stays.
-        from ydb_tpu_torch.ssa import plan_fuse
-
-        if plan_fuse.fusion_enabled() and not isinstance(plan, TableScan):
-            out = _execute_plan_fused(plan, db)
-            if out is not None:
-                return out
-        _memo = {}
+        with work_lock.shared():
+            return _execute_top(plan, db, use_dq)
     hit = _memo.get(id(plan))
     if hit is not None:
         return hit
@@ -251,10 +250,31 @@ def execute_plan(plan: PlanNode, db: Database,
     return out
 
 
-def _scan_node(plan: TableScan, db: Database, dev) -> TableBlock:
+def _execute_top(plan: PlanNode, db: Database, use_dq) -> TableBlock:
+    if (use_dq if use_dq is not None else DQ_ON) and any(
+            isinstance(n, (LookupJoin, ExpandJoin))
+            for n in _plan_nodes(plan)):
+        out = _execute_plan_dq(plan, db)
+        if out is not None:
+            return out
+    # whole-plan fusion: one dispatch for the whole tree when it is
+    # fusible. A bare TableScan is already a single fragment — the
+    # walk's streaming scan stays.
+    from ydb_tpu_torch.ssa import plan_fuse
+
+    if plan_fuse.fusion_enabled() and not isinstance(plan, TableScan):
+        out = _execute_plan_fused(plan, db)
+        if out is not None:
+            return out
+    return execute_plan(plan, db, {})
+
+
+def _scan_node(plan: TableScan, db: Database, dev, sp) -> TableBlock:
     src = db.sources[plan.table]
     key = (plan.table, plan.program)
     ex = db._compile_cache.get(key)
+    sp.set(table=plan.table,
+           compile_cache="miss" if ex is None else "hit")
     if ex is None:
         ex = ScanExecutor(
             plan.program, src, block_rows=SCAN_BLOCK_ROWS, device=dev,
@@ -269,19 +289,20 @@ def _scan_node(plan: TableScan, db: Database, dev) -> TableBlock:
     return ex.run_stream(_cached_stream(src, ex.read_cols, db, dev))
 
 
-def _stage_fused_site(site, db: Database, fused) -> TableBlock:
+def _stage_fused_site(site, db: Database, fused=None) -> TableBlock:
     """One fused scan site's rows at its shape-class capacity, on the
-    plan's device. On CUDA they are copied straight into the fused plan's
-    static input block, which is returned (a host table is one copy from
-    the host, a table held on the card one copy on the card); elsewhere
-    they make a fresh block. A source that is not a ``ColumnSource`` (the
+    database's device. Given a CUDA ``fused`` plan they are copied
+    straight into its static input block, which is returned (a host
+    table is one copy from the host, a table held on the card one copy on
+    the card); otherwise (``fused=None``: the batcher's per-member
+    staging) they make a fresh block. A source that is not a ``ColumnSource`` (the
     storage path's ``MultiShardStreamSource``) streams its blocks —
     zone-map pruned and through the block cache as ``_scan_node`` does —
     which ``fit_blocks`` merges and pads."""
     from ydb_tpu_torch.ssa import plan_fuse
 
     src = db.sources[site.table]
-    dev = fused.device
+    dev = fused.device if fused is not None else resolve_device(db.device)
     if not isinstance(src, ColumnSource):
         if site.node.program is not None:
             src = _pruned_source(src, site.node.program, db)
@@ -292,7 +313,7 @@ def _stage_fused_site(site, db: Database, fused) -> TableBlock:
     if src.validity:
         validity = {m: src.validity[m] for m in site.read_cols
                     if m in src.validity}
-    if dev.type == "cuda":
+    if fused is not None and dev.type == "cuda":
         return fused.stage_into(site.key, arrays, validity, src.num_rows)
     return TableBlock.from_numpy(arrays, site.in_schema, validity,
                                  capacity=site.capacity, device=dev)
@@ -303,7 +324,15 @@ def _run_fused(fused, db: Database) -> TableBlock:
     expand-join overflow: grow the capacity (the cached plan keeps it for
     later statements) and dispatch again over the same staged inputs,
     which no dispatch writes. The plan's lock is held from staging to
-    the result, so no other statement restages its inputs between."""
+    the result, so no other statement restages its inputs between. A
+    capture that must wait for other statements' device work restarts
+    the statement's dispatch under ``device.work_lock`` exclusively."""
+    from ydb_tpu_torch.ssa import plan_fuse
+
+    return plan_fuse.with_capture_retry(lambda: _run_fused_locked(fused, db))
+
+
+def _run_fused_locked(fused, db: Database) -> TableBlock:
     with fused.lock:
         inputs = {s.key: _stage_fused_site(s, db, fused)
                   for s in fused.sites}
@@ -331,13 +360,26 @@ def _execute_plan_fused(plan: PlanNode, db: Database) -> TableBlock | None:
         return None
     key = sig.cache_key(db)
     fused = db._compile_cache.get(key)
-    if fused is None:
-        try:
-            fused = plan_fuse.build(sig, db)
-        except plan_fuse.Unfusible:
-            return None
-        db._compile_cache[key] = fused
-    return _run_fused(fused, db)
+    fresh = fused is None
+    with tracing.span("plan.fuse") as fsp:
+        if fresh:
+            try:
+                fused = plan_fuse.build(sig, db)
+            except plan_fuse.Unfusible:
+                return None
+            db._compile_cache[key] = fused
+        ft0 = fused.first_trace_seconds or 0.0
+        out = _run_fused(fused, db)
+        if fsp.recording:
+            fsp.set(fused_stages=fused.fused_stages,
+                    fragments_elided=fused.fused_stages - 1,
+                    compile_cache="miss" if fresh else "hit")
+            # a grow's recapture on a cached plan counts too: this run's
+            # trace time, not the lifetime sum
+            ft = (fused.first_trace_seconds or 0.0) - ft0
+            if ft:
+                fsp.set(first_trace_seconds=round(ft, 6))
+    return out
 
 
 def _compiled_transform(plan: Transform, schema, db: Database, dev):
@@ -356,7 +398,8 @@ def _execute_node(plan: PlanNode, db: Database, _memo: dict) -> TableBlock:
         src = db.sources[plan.table]
         if plan.program is None:
             return _materialize(src, plan.columns, dev)
-        return _scan_node(plan, db, dev)
+        with tracing.span("scan") as sp:
+            return _scan_node(plan, db, dev, sp)
     if isinstance(plan, LookupJoin):
         probe = execute_plan(plan.probe, db, _memo)
         build = execute_plan(plan.build, db, _memo)
@@ -377,14 +420,16 @@ def _execute_node(plan: PlanNode, db: Database, _memo: dict) -> TableBlock:
         block = execute_plan(plan.input, db, _memo)
         key = (plan.program, plan.dict_aliases, block.schema)
         hit = db._compile_cache.get(key)
-        if hit is None:
-            # step-indexed diagnostics for malformed programs before any
-            # lowering (compile_program re-checks)
-            check_program(plan.program, block.schema)
-            hit = _compiled_transform(plan, block.schema, db, dev)
-            db._compile_cache[key] = hit
-        run, aux = hit
-        return run(block, aux)
+        with tracing.span("transform") as sp:
+            sp.set(compile_cache="miss" if hit is None else "hit")
+            if hit is None:
+                # step-indexed diagnostics for malformed programs before
+                # any lowering (compile_program re-checks)
+                check_program(plan.program, block.schema)
+                hit = _compiled_transform(plan, block.schema, db, dev)
+                db._compile_cache[key] = hit
+            run, aux = hit
+            return run(block, aux)
     if isinstance(plan, Concat):
         # branches execute independently (planner guarantees identical
         # column names/types); live rows append in branch order
@@ -397,4 +442,5 @@ def to_host(block) -> OracleTable:
     """The statement's one deliberate device-to-host fetch."""
     if isinstance(block, OracleTable):
         return block
-    return OracleTable.from_block(block)
+    with work_lock.shared():
+        return OracleTable.from_block(block)

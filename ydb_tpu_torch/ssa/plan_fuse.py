@@ -36,8 +36,14 @@ The CUDA graph, as ``FusedPlan`` builds it on its first run:
      geometry outside the graph;
   3. the capture of ``run_all`` on that stream into a graph with its own
      private memory pool (``pool_bytes``), with Python's garbage
-     collector off for its length.
+     collector off for its length, in ``thread_local`` capture mode.
   ``first_trace_seconds`` is warm-up plus capture (``capture_seconds``).
+  Warm-up and capture hold ``device.work_lock`` exclusively, so no other
+  statement thread issues device work meanwhile (a dispatch that finds
+  it held raises ``CaptureNeedsExclusive`` and the executor retries the
+  statement's dispatch under the lock: ``with_capture_retry``), and
+  ``device.capture_lock``, which worker threads hold around theirs.
+  ``release`` frees a plan's graphs when it leaves its cache.
 
 A statement copies each site's rows into the static inputs (a host
 table is a copy from the host, a table already on the card a copy on
@@ -94,7 +100,7 @@ from ydb_tpu_torch.blocks.block import (
     TableBlock,
     device_aux,
 )
-from ydb_tpu_torch.device import capture_lock, resolve_device
+from ydb_tpu_torch.device import capture_lock, resolve_device, work_lock
 from ydb_tpu_torch.engine.scan import merge_blocks_device, required_columns
 from ydb_tpu_torch.plan.nodes import (
     Concat,
@@ -145,6 +151,23 @@ def shape_class(n: int) -> int:
         return -(-n // q) * q
     step = 1 << ((n - 1).bit_length() - 3)
     return -(-n // step) * step
+
+
+class CaptureNeedsExclusive(Exception):
+    """A capture was due while another statement thread held
+    ``device.work_lock``: the caller lets go of the plan's lock and
+    retries under ``work_lock.exclusive()`` (``with_capture_retry``)."""
+
+
+def with_capture_retry(fn):
+    """Run ``fn`` (a dispatch that may capture a graph); when a capture
+    could not take ``device.work_lock`` at once, run it again holding
+    the lock exclusively."""
+    try:
+        return fn()
+    except CaptureNeedsExclusive:
+        with work_lock.exclusive():
+            return fn()
 
 
 class Unfusible(Exception):
@@ -608,10 +631,18 @@ class FusedPlan:
     def _capture(self, static: list, stacked: bool = False) -> _Captured:
         """Warm up, then capture ``run_all`` over ``static`` (one replay
         then serves every member) on the fusion stream, holding
-        ``capture_lock`` so no worker thread calls the CUDA API
-        meanwhile."""
-        with capture_lock:
-            return self._capture_locked(static, stacked)
+        ``device.work_lock`` exclusively (no other statement thread does
+        device work meanwhile) and ``capture_lock`` (nor does a worker
+        thread). Raises ``CaptureNeedsExclusive`` when another thread
+        holds ``work_lock``: waiting for it here, under the plan's lock,
+        could deadlock."""
+        if not work_lock.try_exclusive():
+            raise CaptureNeedsExclusive()
+        try:
+            with capture_lock:
+                return self._capture_locked(static, stacked)
+        finally:
+            work_lock.release_exclusive()
 
     def _capture_locked(self, static: list, stacked: bool) -> _Captured:
         from ydb_tpu_torch.ssa import cuda_kernels
@@ -635,7 +666,8 @@ class FusedPlan:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=s):
+            with torch.cuda.graph(graph, stream=s,
+                                  capture_error_mode="thread_local"):
                 out, totals = self._run_members(static, stacked)
         finally:
             if gc_was_on:
@@ -677,6 +709,15 @@ class FusedPlan:
         if any(b is None for b in sizes):
             return None
         return sum(sizes)
+
+    def release(self) -> None:
+        """Free every graph with its private pool and the serial static
+        inputs (the plan left its cache); a later run captures anew."""
+        with self.lock:
+            for cap in self._graphs.values():
+                cap.graph.reset()
+            self._graphs.clear()
+            self._inputs = None
 
     def overflowed(self, totals: list[int]) -> list[int]:
         """Expand-join indexes whose match total exceeded capacity."""

@@ -1,14 +1,16 @@
 """StatisticsAggregator: per-shard sketches folded into table stats.
 
-The port's own copy of ``ydb_tpu/stats/aggregator.py``: an in-memory
-aggregator. The reference's snapshot through a ``TabletExecutor`` comes
-with the session plane (ROADMAP.md queue A item 5), its probe and
-thread-sanitizer hooks with items 6-7. Mirror of the reference's
-statistics aggregator tablet
+The port's own copy of ``ydb_tpu/stats/aggregator.py``. Its probe and
+thread-sanitizer hooks wait for their ROADMAP.md queue A items. Mirror
+of the reference's statistics aggregator tablet
 (ydb/core/statistics/aggregator/aggregator_impl.h; SURVEY.md §2.7): a
 service that periodically — and on demand after commit/compaction
-events — pulls per-shard column sketches and merges them into
-table-level ``TableStats`` for the planner.
+events — pulls per-shard column sketches, merges them into table-level
+``TableStats`` and serves them to the planner. Durability rides the
+tablet WAL machinery (``tablet/executor.py``, the reference's table name
+and JSON): merged stats snapshot into the executor's local DB, so a
+rebooted node (of either package) plans with its persisted statistics
+instead of none while the first refresh runs.
 
 Collection is incremental: per-(shard, portion) sketches cache in
 memory keyed by the immutable portion id, so a refresh only reads
@@ -20,6 +22,7 @@ chunk at a time).
 
 from __future__ import annotations
 
+import json
 import threading
 
 from ydb_tpu_torch.stats.cost import ColumnStats, TableStats
@@ -29,22 +32,37 @@ from ydb_tpu_torch.stats.sketch import ColumnSketch
 class StatisticsAggregator:
     """Merges per-portion column sketches into table-level statistics.
 
-    ``start(period, fn)`` runs ``fn`` (the owner's refresh closure) on a
-    background thread until ``stop()`` — the owner decides WHAT to
-    refresh, the aggregator owns cadence and thread lifecycle.
+    ``store`` (optional) enables snapshot/restore through a
+    TabletExecutor on that blob store; without it the aggregator is a
+    purely in-memory cache. ``start(period, fn)`` runs ``fn`` (the
+    owner's refresh closure) on a background thread until ``stop()`` —
+    the owner decides WHAT to refresh, the aggregator owns cadence and
+    thread lifecycle.
     """
 
-    def __init__(self):
+    def __init__(self, store=None, tablet_id: str = "statsaggr"):
         self._lock = threading.Lock()
         # (shard_id, portion_id) -> {column: ColumnSketch}
         self._portions: dict = {}
         self._tables: dict = {}
         # table -> visible-portion-set fingerprint of the last refresh:
         # a steady-state maintenance tick (nothing committed/compacted)
-        # must not re-merge every sketch
+        # must not re-merge every sketch nor rewrite the WAL snapshot
         self._table_keys: dict = {}
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        self.executor = None
+        if store is not None:
+            from ydb_tpu_torch.tablet.executor import TabletExecutor
+
+            self.executor = TabletExecutor.boot(tablet_id, store)
+            restored = {}
+            for (tname,), row in self.executor.db.table(
+                    "table_stats").range():
+                restored[tname] = TableStats.from_json(
+                    json.loads(row["json"]))
+            with self._lock:
+                self._tables.update(restored)
 
     # ---- collection ----
 
@@ -128,6 +146,11 @@ class StatisticsAggregator:
         with self._lock:
             self._tables[name] = stats
             self._table_keys[name] = key
+        if self.executor is not None:
+            payload = json.dumps(stats.to_json())
+            self.executor.run(
+                lambda txc: txc.put("table_stats", (name,),
+                                    {"json": payload}))
         return stats
 
     def refresh_tables(self, tables: dict) -> dict:
@@ -165,6 +188,9 @@ class StatisticsAggregator:
             if drop:
                 for k in [k for k in self._portions if k[0] in drop]:
                     del self._portions[k]
+        if self.executor is not None:
+            self.executor.run(
+                lambda txc: txc.erase("table_stats", (name,)))
 
     # ---- cadence ----
 
