@@ -173,6 +173,33 @@ Phases, in order; any failure exits non-zero before the final line:
    booted from the same directory answers Q1, Q6 and q33 byte for byte
    over a new server. (8) The 22 golden digests at sf 0.01 through a
    third Cluster over pgwire.
+11. The sanitizers (``ydb_tpu_torch/analysis``): tsan, leaksan, syncsan
+   and memsan armed through their ``activate()`` (no fallback: a seam
+   that does not install, or a CUDA sync debug mode other than "warn",
+   fails the run), then TPC-H Q1 and Q6 through ``ScanExecutor`` over
+   phase 3's lineitem (its read columns held on the card), each equal to
+   the same run unsanitized (floats rtol 1e-12); a Cluster booted from
+   phase 10's store, under tsan's tracked locks, answers Q1, Q6, q3 (DQ),
+   q33 and q36 (fused) over pgwire; one batched q33 round of
+   ``BATCH_CLIENTS`` connections; the armed q33 runs below; q33 and q36
+   with fusion off on the per-aggregate lowering (``grouped_sum``); each
+   equal to phase 10's unsanitized answer. The CUDA kernels' launches are
+   counted from the boot to here (``sanitize_launches``; both must
+   launch). Then q33 and q36 on both group-by lowerings with every kernel
+   call held against its plain version (not counted); ``Cluster.stop``. Each statement runs once
+   (the free pass) and ``SANITIZE_WARM`` times warm, one
+   ``{"sanitize": ...}`` line each: syncs the seams saw and the ones the
+   debug mode saw, H2D and D2H copies, graph captures, kernel builds,
+   ``compile_program`` calls, memsan's charged peak and unbudgeted
+   allocations, the allocator's peak (``max_memory_allocated`` after
+   ``reset_peak_memory_stats``, single-threaded), the leak handles live
+   and the race reports. It fails on a capture, build or compile in a
+   warm statement, an unbudgeted allocation, a leak at ``Cluster.stop``,
+   a race report, a result unequal to the unsanitized one, or a kernel
+   unlaunched. ``{"sanitize_overhead": ...}``: warm q33 over pgwire,
+   disarmed (phase 10's cluster) and armed medians; the disarmed one
+   within ``SANITIZE_NOISE`` of phase 10's warm q33. Under
+   ``SANITIZE_BUDGET_S`` (90 s).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -3098,10 +3125,14 @@ def serving_reboot(root, dev, want: dict) -> dict:
 
 
 def serving_phase(dev, ck, sf: float = SERVING_SF,
-                  hits_rows: int = SERVING_HITS_ROWS) -> dict:
+                  hits_rows: int = SERVING_HITS_ROWS,
+                  keep_root: bool = False) -> dict:
     """Phase 10: the session and serving plane (see the module docstring).
     Returns every measurement; ``launches`` are the CUDA kernels'
-    launches of steps 2-3."""
+    launches of steps 2-3. With ``keep_root`` the cluster's directory
+    stays for phase 11 (``out["root"]``, the caller removes it), with the
+    unsanitized answers of phase 11's statements (``sanitize_want``) and
+    the disarmed q33 seconds over pgwire (``sanitize_disarmed``)."""
     import shutil
     import tempfile
 
@@ -3129,7 +3160,16 @@ def serving_phase(dev, ck, sf: float = SERVING_SF,
         cl = PgClient(srv.port)
         want = {sql: cl.ok(sql)[0] for sql in (
             TPCH["q1"], TPCH["q6"], clickbench.QUERIES["q33"])}
+        if keep_root:
+            out["sanitize_want"] = {
+                name: cl.ok(sql)[0]
+                for name, sql in sanitize_statements().items()}
         cl.close()
+        if keep_root:
+            q33 = next(r for r in out["clickbench"] if r["query"] == "q33")
+            out["sanitize_disarmed"] = {
+                "runs": q33_over_wire(srv.port),
+                "phase10_warm_s": q33["warm_s"]}
         srv.stop()
         cluster.stop()
         del cluster
@@ -3137,10 +3177,320 @@ def serving_phase(dev, ck, sf: float = SERVING_SF,
                                        want)
         out["goldens"] = serving_goldens(os.path.join(root, "golden"), dev)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep_root:
+            out["root"] = root
+        else:
+            shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"serving phase: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------- phase 11: the sanitizers ----------------
+
+#: warm runs of each phase-11 statement after its free pass (the
+#: reference's warmup rule: the first statement of a label is free)
+SANITIZE_WARM = 2
+#: warm q33 runs over one pgwire connection for the disarmed (phase 10's
+#: cluster) and armed medians
+SANITIZE_Q33_RUNS = 9
+#: the disarmed q33 median over pgwire may exceed phase 10's warm q33 by
+#: this factor at most: host timing noise on a shared machine, not a
+#: speed claim (a disarmed sanitizer patches nothing)
+SANITIZE_NOISE = 2.0
+#: phase 11's time limit, seconds of script time
+SANITIZE_BUDGET_S = 90.0
+
+
+def sanitize_statements() -> dict:
+    """Phase 11's SQL statements (name -> text)."""
+    from ydb_tpu_torch.workload import clickbench
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    return {"q1": TPCH["q1"], "q6": TPCH["q6"], "q3": TPCH["q3"],
+            "q33": clickbench.QUERIES["q33"],
+            "q36": clickbench.QUERIES["q36"]}
+
+
+def q33_over_wire(port, runs: int = SANITIZE_Q33_RUNS) -> list:
+    """Seconds of ``runs`` warm q33 statements over one connection (one
+    statement first, not timed)."""
+    from ydb_tpu_torch.workload import clickbench
+
+    sql = clickbench.QUERIES["q33"]
+    cl = PgClient(port)
+    cl.ok(sql)
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        cl.ok(sql)
+        out.append(time.perf_counter() - t0)
+    cl.close()
+    return out
+
+
+class sanitizers_armed:
+    """All four runtime sanitizers armed for a block (tsan, leaksan,
+    syncsan, memsan through their ``activate()``), with no fallback: a
+    seam that did not install, or a CUDA sync debug mode that is not
+    "warn", raises. On exit every seam must be restored."""
+
+    def __init__(self, dev):
+        self.cuda = dev.type == "cuda"
+
+    def __enter__(self):
+        from ydb_tpu_torch.analysis import leaksan, memsan, sanitizer, \
+            syncsan
+
+        self.orig = (torch.Tensor.item, torch.Tensor.to, torch.zeros,
+                     torch.cuda.synchronize)
+        self.ctx = [sanitizer.activate(), leaksan.activate(),
+                    syncsan.activate(), memsan.activate()]
+        for c in self.ctx:
+            c.__enter__()
+        if not (syncsan.installed() and memsan.installed()
+                and sanitizer.enabled() and leaksan.enabled()):
+            raise RuntimeError("a sanitizer did not arm")
+        if (torch.Tensor.item is self.orig[0] or torch.zeros is self.orig[2]
+                or torch.cuda.synchronize is self.orig[3]):
+            raise RuntimeError("a sanitizer seam did not install")
+        if self.cuda and torch.cuda.get_sync_debug_mode() != 1:
+            raise RuntimeError("CUDA sync debug mode is not 'warn' while "
+                               "syncsan is armed")
+        return self
+
+    def __exit__(self, *exc):
+        for c in reversed(self.ctx):
+            c.__exit__(None, None, None)
+        now = (torch.Tensor.item, torch.Tensor.to, torch.zeros,
+               torch.cuda.synchronize)
+        if any(a is not b for a, b in zip(now, self.orig)):
+            raise RuntimeError("a sanitizer seam was not restored")
+        if self.cuda and torch.cuda.get_sync_debug_mode() != 0:
+            raise RuntimeError("CUDA sync debug mode not restored")
+        return False
+
+
+def sanitize_row(label, path, warm, ss, ms, peak, base) -> dict:
+    """One ``{"sanitize": ...}`` line; raises when a warm statement
+    captured, built, compiled or allocated outside a memsan seam."""
+    from ydb_tpu_torch.analysis import leaksan, sanitizer
+
+    row = {"statement": label, "path": path, "warm": warm,
+           "syncs_seams": ss["syncs"], "syncs_debug": ss["debug_syncs"],
+           "h2d": ss["h2d"], "d2h": ss["d2h"],
+           "captures": ss["captures"], "builds": ss["builds"],
+           "compiles": ss["compiles"],
+           "charged_peak_bytes": ms["peak"], "charges": ms["charges"],
+           "unbudgeted": ms["unbudgeted"],
+           "allocator_peak_bytes": peak,
+           "allocator_peak_over_start": peak - base,
+           "leak_handles": leaksan.counts(),
+           "races": len(sanitizer.reports())}
+    emit({"sanitize": row})
+    assert row["unbudgeted"] == 0, row
+    assert not row["races"], sanitizer.reports()
+    if warm:
+        assert row["captures"] == row["builds"] == row["compiles"] == 0, row
+    return row
+
+
+def _peak_start(dev) -> int:
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _peak_end(dev) -> int:
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def sanitize_scan(tp, dev) -> tuple:
+    """Phase 11, scan path: TPC-H Q1 and Q6 through ``ScanExecutor`` over
+    phase 3's lineitem (its read columns held on the card), armed by the
+    caller; each sanitized result equals the same run unsanitized, which
+    the caller made first (``want``)."""
+    from ydb_tpu_torch import dtypes
+    from ydb_tpu_torch.engine.scan import ColumnSource, ScanExecutor
+    from ydb_tpu_torch.workload import tpch
+
+    li = tp.tables["lineitem"]
+    progs = {"q1": tpch.q1_program(), "q6": tpch.q6_program()}
+    host = ColumnSource(li, tpch.LINEITEM_SCHEMA, tp.dicts)
+    need = tuple(dict.fromkeys(
+        c for p in progs.values()
+        for c in ScanExecutor(p, host, device=dev).read_cols))
+    held = ColumnSource({c: li[c] for c in need},
+                        dtypes.Schema(tuple(tpch.LINEITEM_SCHEMA.field(c)
+                                            for c in need)),
+                        tp.dicts).to_device(dev)
+    exs = {k: ScanExecutor(p, held, block_rows=BLOCK_ROWS, device=dev)
+           for k, p in progs.items()}
+
+    def run(k):
+        ex = exs[k]
+        return ex.run_stream(held.blocks(BLOCK_ROWS, ex.read_cols,
+                                         device=dev)).host_columns()
+
+    return exs, run
+
+
+def scan_statements(run, dev, want) -> list:
+    """The armed scan statements: a free pass then SANITIZE_WARM warm runs
+    of each, one line each."""
+    from ydb_tpu_torch.analysis import memsan, syncsan
+
+    rows = []
+    for k in ("q1", "q6"):
+        for i in range(1 + SANITIZE_WARM):
+            label = f"{k}_scan"
+            base = _peak_start(dev)
+            st = syncsan.begin_statement(label)
+            mt = memsan.begin_statement(label)
+            got = run(k)
+            ss = syncsan.end_statement(st, enforce=False)
+            ms = memsan.end_statement(mt, enforce=False)
+            peak = _peak_end(dev)
+            for part in (0, 1):
+                for c, v in want[k][part].items():
+                    if v.dtype.kind == "f":  # sums may reassociate
+                        np.testing.assert_allclose(got[part][c], v,
+                                                   rtol=1e-12, atol=0)
+                    else:
+                        assert np.array_equal(got[part][c], v), (label, c)
+            rows.append(sanitize_row(label, "scan", i > 0, ss, ms, peak,
+                                     base))
+    return rows
+
+
+def session_statements(cluster, cl, dev, stmts, want,
+                       suffix="") -> list:
+    """Each statement over the pgwire connection ``cl``: a free pass and
+    SANITIZE_WARM warm runs, each equal to phase 10's unsanitized answer
+    (floats rtol 1e-12, their sums may reassociate; the rest byte for
+    byte), one ``{"sanitize": ...}`` line each."""
+    rows = []
+    for name, sql in stmts.items():
+        for i in range(1 + SANITIZE_WARM):
+            base = _peak_start(dev)
+            with routed() as seen:
+                got, cols = cl.ok(sql)
+            peak = _peak_end(dev)
+            same_wire(got, want[name], cols, name + suffix, rtol=1e-12)
+            prof = cluster.profiles.recent()[-1]
+            rows.append(sanitize_row(
+                name + suffix, seen[-1] if seen else "walk", i > 0,
+                prof.syncsan, prof.memsan, peak, base))
+    return rows
+
+
+def peragg_statements(cluster, cl, dev, stmts, want) -> list:
+    """q33 and q36 with fusion off on the per-aggregate group-by lowering,
+    which launches ``grouped_sum`` once per aggregate (the fused lowering
+    launches ``grouped_sum_multi``); the plans made meanwhile are dropped
+    after."""
+    from ydb_tpu_torch.ssa import kernels
+
+    cluster._invalidate_plans()
+    kernels.FUSED_FORCE = False
+    try:
+        with fusion_force(False):
+            return session_statements(
+                cluster, cl, dev, {k: stmts[k] for k in ("q33", "q36")},
+                want, suffix="_peragg")
+    finally:
+        kernels.FUSED_FORCE = None
+        cluster._invalidate_plans()
+
+
+def sanitize_phase(dev, ck, root, tp, want, disarmed) -> dict:
+    """Phase 11 (see the module docstring). ``root`` is phase 10's store,
+    ``tp`` phase 3's TPC-H data, ``want`` the unsanitized wire rows of
+    ``sanitize_statements()`` from phase 10's cluster, ``disarmed`` the
+    disarmed q33 seconds over pgwire there."""
+    from ydb_tpu_torch.analysis import leaksan, sanitizer
+    from ydb_tpu_torch.workload import clickbench
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # the scan path's unsanitized answers first
+    exs, run = sanitize_scan(tp, dev)
+    scan_want = {k: run(k) for k in exs}
+    stmts = sanitize_statements()
+    with sanitizers_armed(dev):
+        out["scan"] = scan_statements(run, dev, scan_want)
+        cluster, srv, out["boot_s"] = serving_boot(root, dev)
+        ck_ok = dev.type == "cuda"
+        if ck_ok:
+            ck.reset_launches()
+        cl = PgClient(srv.port)
+        out["session"] = session_statements(cluster, cl, dev, stmts, want)
+        # one batched q33 round: eight connections at once
+        n0 = len(cluster.profiles.recent())
+        with armed(cluster, BATCH_WINDOW_MS):
+            batch, wall = concurrent_queries(
+                srv.port, [[stmts["q33"]]] * BATCH_CLIENTS)
+        for st in batch:
+            assert not st[4], st[4]
+            same_wire(st[2], want["q33"], st[3], "q33 batched")
+        profs = cluster.profiles.recent()[n0:]
+        assert len(profs) == BATCH_CLIENTS, len(profs)
+        agg = {k: max(p.syncsan[k] for p in profs)
+               for k in profs[0].syncsan}
+        magg = {k: max(p.memsan[k] for p in profs) for k in profs[0].memsan}
+        row = sanitize_row("q33_batched_round", "batched", True, agg, magg,
+                           0, 0)
+        row.update(statements=len(profs), wall_s=wall,
+                   batches=cluster.batcher.snapshot()["batches"])
+        out["batched"] = row
+        out["q33_armed_s"] = q33_over_wire(srv.port)
+        # q33 and q36 on the per-aggregate lowering (``grouped_sum``), last:
+        # they drop the plans the statements above made warm
+        out["session"] += peragg_statements(cluster, cl, dev, stmts, want)
+        cl.close()
+        if ck_ok:
+            # the main path's launches, before the check's own
+            out["launches"] = dict(ck.LAUNCHES)
+            log(f"sanitize launches (session statements, batched round, "
+                f"q33 over pgwire): {out['launches']}")
+            assert all(v > 0 for v in out["launches"].values()), \
+                out["launches"]
+            out["kernel_check"] = serving_kernels(cluster, ck)
+        srv.stop()
+        live = leaksan.counts()
+        cluster.stop()  # raises LeakError when a handle outlived it
+        out["leaks_at_stop"] = leaksan.counts()
+        out["races"] = sanitizer.reports()
+        emit({"sanitize_stop": {"leak_handles_before_stop": live,
+                                "leak_handles_at_stop":
+                                out["leaks_at_stop"],
+                                "races": out["races"]}})
+        assert not out["leaks_at_stop"], out["leaks_at_stop"]
+        assert not out["races"], out["races"]
+    out["q33_disarmed_s"] = disarmed["runs"]
+    med_d = statistics.median(disarmed["runs"])
+    med_a = statistics.median(out["q33_armed_s"])
+    out["overhead"] = {
+        "q33_disarmed_median_s": med_d, "q33_armed_median_s": med_a,
+        "armed_over_disarmed": med_a / med_d,
+        "phase10_q33_warm_s": disarmed["phase10_warm_s"],
+        "disarmed_over_phase10": med_d / disarmed["phase10_warm_s"]}
+    emit({"sanitize_overhead": out["overhead"]})
+    assert med_d <= SANITIZE_NOISE * disarmed["phase10_warm_s"], \
+        out["overhead"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sanitize phase: {out['seconds']:.1f} s; scan and session "
+        f"statements clean (warm: no capture, build or compile; no "
+        f"unbudgeted allocation), no leak at Cluster.stop, no race; "
+        f"q33 over pgwire disarmed {med_d * 1e3:.2f} ms, armed "
+        f"{med_a * 1e3:.2f} ms")
+    assert out["seconds"] < SANITIZE_BUDGET_S, out["seconds"]
     return out
 
 
@@ -3413,23 +3763,40 @@ def main(argv=None) -> int:
     # ---- phase 9: the ColumnShard storage path ----
     storage = storage_phase(dev, ck, tp, cb, args.storage_sql_sf,
                             (want1, want6))
-    del tp, cb
+    del cb
     torch.cuda.empty_cache()
 
     # ---- phase 10: the session and serving plane ----
-    serving = serving_phase(dev, ck, args.serving_sf)
+    serving = serving_phase(dev, ck, args.serving_sf, keep_root=True)
+
+    # ---- phase 11: the sanitizers ----
+    import shutil
+
+    try:
+        sanitize = sanitize_phase(
+            dev, ck, os.path.join(serving["root"], "main"), tp,
+            serving.pop("sanitize_want"), serving.pop("sanitize_disarmed"))
+    finally:
+        shutil.rmtree(serving.pop("root"), ignore_errors=True)
+    del tp
+    torch.cuda.empty_cache()
     for row in kernel_rows:
         row["sql_launches"] = sql_launches[row["name"]]
         row["dq_launches"] = dq_launches[row["name"]]
         row["fused_launches"] = fusion["kernel_launches"][row["name"]]
         row["storage_launches"] = storage["launches"][row["name"]]
         row["serving_launches"] = serving["launches"][row["name"]]
+        row["sanitize_launches"] = sanitize["launches"][row["name"]]
+        row["sanitize_checked_calls"] = sum(
+            q[row["name"]]["calls"]
+            for q in sanitize["kernel_check"].values())
         row["serving_checked_calls"] = sum(
             q[row["name"]]["calls"]
             for q in serving["kernel_check"].values())
         row["max_abs_err"] = max(row["max_abs_err"], *(
             q[row["name"]]["max_abs_err"]
-            for q in serving["kernel_check"].values()))
+            for q in (*serving["kernel_check"].values(),
+                      *sanitize["kernel_check"].values())))
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
@@ -3438,7 +3805,8 @@ def main(argv=None) -> int:
                   sql=sql_rows, sql_sf=sql_tp.sf,
                   sql_golden_float_exceptions=exceptions,
                   sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion,
-                  tpcds=tpcds_rows, storage=storage, serving=serving)
+                  tpcds=tpcds_rows, storage=storage, serving=serving,
+                  sanitize=sanitize)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

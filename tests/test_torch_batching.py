@@ -18,9 +18,10 @@ a ``cuda``-marked test, on the card; and a ``cuda``-marked test that
 runs walk, DQ and fused statements on eight threads while another
 thread captures a new plan (``device.work_lock``).
 
-Deferred, each with its ROADMAP.md queue A item: the leak-sanitizer
-drain of batch seats and flights (sanitizers), the sys-view batch
-columns and the EXPLAIN ANALYZE batching line (sys views)."""
+The leak-sanitizer drain of batch seats and staging flights is the
+reference's (``tests/test_batching.py:402-435``). Deferred to its
+ROADMAP.md queue A item: the sys-view batch columns and the EXPLAIN
+ANALYZE batching line (sys views)."""
 
 import contextlib
 import threading
@@ -32,6 +33,7 @@ import torch
 
 from ydb_tpu.kqp.session import Cluster as RCluster
 
+from ydb_tpu_torch.analysis import leaksan
 from ydb_tpu_torch.chaos.deadline import StatementCancelled
 from ydb_tpu_torch.engine.scanshare import ScanShare
 from ydb_tpu_torch.kqp.batch import BatchDispatcher
@@ -579,3 +581,40 @@ def test_concurrent_statements_during_capture_on_gpu():
         _same_result(out[0], to_host(execute_plan(fresh, cdb)))
     finally:
         plan_fuse.FUSE_FORCE = saved
+
+
+# ---------------- leak sanitizer drain ----------------
+
+def test_batched_path_drains_under_leaksan(cluster):
+    """Batch seats and staging flights all close — including the seat
+    abandoned by a deadline-cancelled member (the reference's
+    ``tests/test_batching.py:402``)."""
+    with leaksan.activate():
+        n = 3
+        errors = [None] * n
+        barrier = threading.Barrier(n)
+
+        def work(i):
+            s = cluster.session()
+            barrier.wait()
+            try:
+                s.execute(Q1_SQL, timeout=(0.1 if i == n - 1 else None))
+            except StatementCancelled:
+                pass  # expected for the doomed member
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                errors[i] = e
+
+        with _armed(cluster, window_ms=400, max_batch=n):
+            threads = [threading.Thread(target=work, args=(i,))
+                       for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(30.0)
+        assert errors == [None] * n
+        counts = leaksan.counts()
+        assert counts.get("batch.member", 0) == 0
+        assert counts.get("scanshare.flight", 0) == 0
+        leaksan.assert_drained(
+            kinds=("batch.member", "scanshare.flight"),
+            where="after batched burst")

@@ -4,8 +4,9 @@ invalidation across compaction/TTL rewrites, mid-stream resident/host
 fallback equality, the YDB_TPU_TORCH_RESIDENT=0 A/B switch, concurrent
 scans during promotion, and the single-flight DeviceBlockCache fill —
 the Cluster-free cases of ``tests/test_resident.py`` against
-``ydb_tpu_torch`` (its sysview, viewer, span and thread-sanitizer cases
-wait for the session plane and the sanitizers)."""
+``ydb_tpu_torch`` (its sysview, viewer and span cases wait for their
+ROADMAP.md queue A items; its thread-sanitizer stress of the resident
+store is mirrored here)."""
 
 import threading
 
@@ -303,6 +304,45 @@ def test_concurrent_scans_during_promotion():
     assert not errs
     assert shard.resident.snapshot()["portions"] >= 0
 
+
+def test_concurrent_scans_during_promotion_tsan():
+    """The same race under the thread sanitizer (the reference's
+    ``tests/test_resident.py:304``): no lockset violation on the resident
+    store's tracked maps, every result exact."""
+    from ydb_tpu_torch.analysis import sanitizer
+
+    with sanitizer.activate():
+        resident_mod.RESIDENT_FORCE = True
+        shard = _shard()
+        shard.commit([_write(shard, list(range(200)))])
+        want = (sum(range(200)), 200)
+        errs: list = []
+        stop = threading.Event()
+
+        def scanner():
+            try:
+                while not stop.is_set():
+                    if _sum_n(shard) != want:
+                        errs.append("mismatch")
+                        return
+            except Exception as e:  # noqa: BLE001
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=scanner) for _ in range(3)]
+        for t in threads:
+            t.start()
+        try:
+            for _ in range(5):
+                shard.resident.clear()
+                _sum_n(shard)
+                _sum_n(shard)
+                shard.resident.drain()
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=30)
+        assert not errs, errs
+        assert not sanitizer.reports(), sanitizer.reports()
 
 def test_blockcache_single_flight():
     """Two concurrent misses on one key: exactly one fill runs; the

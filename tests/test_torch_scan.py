@@ -256,6 +256,16 @@ SERVING_PATH_MODULES = (
     "ydb_tpu_torch.serving.tenants", "ydb_tpu_torch.serving.admission",
     "ydb_tpu_torch.api", "ydb_tpu_torch.api.pgwire",
 )
+#: the sanitizers and analyzers (ROADMAP.md queue A item 6)
+ANALYSIS_MODULES = (
+    "ydb_tpu_torch.analysis", "ydb_tpu_torch.analysis.suppress",
+    "ydb_tpu_torch.analysis.paths", "ydb_tpu_torch.analysis.sanitizer",
+    "ydb_tpu_torch.analysis.leaksan", "ydb_tpu_torch.analysis.syncsan",
+    "ydb_tpu_torch.analysis.memsan", "ydb_tpu_torch.analysis.lint",
+    "ydb_tpu_torch.analysis.concurrency",
+    "ydb_tpu_torch.analysis.lifecycle", "ydb_tpu_torch.analysis.hotpath",
+    "ydb_tpu_torch.analysis.devmem", "ydb_tpu_torch.analysis.__main__",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -278,11 +288,13 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         assert not missing, missing
         print(len(names))
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
-           + STORAGE_PATH_MODULES + SERVING_PATH_MODULES,))
+           + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
+           + ANALYSIS_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= (15 + len(SQL_PATH_MODULES)
                                            + len(DQ_PATH_MODULES) + 1
                                            + len(STORAGE_PATH_MODULES)
-                                           + len(SERVING_PATH_MODULES))
+                                           + len(SERVING_PATH_MODULES)
+                                           + len(ANALYSIS_MODULES))

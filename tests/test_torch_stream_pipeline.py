@@ -4,10 +4,10 @@ upsert-merge scans, blob faults healing without a consumer stall,
 mid-scan deadline and abandoned-stream drain to zero, and consumer work
 stealing when the dedicated stream pool is saturated — the cases of
 ``tests/test_stream_pipeline.py`` against ``ydb_tpu_torch``. The
-reference injects its blob faults through its chaos subsystem and
-counts flights with its leak sanitizer (ROADMAP.md queue A items 6-7);
-here a faulty blob store injects them, and the scheduler's own flight
-ledger is read."""
+reference injects its blob faults through its chaos subsystem (ROADMAP.md
+queue A item 7); here a faulty blob store injects them, and the
+scheduler's own flight ledger is read, and the leak sanitizer's
+``stream.morsel`` handles must drain too."""
 
 import threading
 import time
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import leaksan
 from ydb_tpu_torch.chaos.deadline import Deadline, StatementCancelled, activate
 from ydb_tpu_torch.engine import stream_sched
 from ydb_tpu_torch.engine.blobs import MemBlobStore
@@ -290,3 +291,30 @@ def test_consumer_steals_when_stream_pool_saturated():
     assert pipelined == serialized  # stolen flights, identical stream
     stats = src.last_pipeline
     assert stats is not None and stats["stolen"] > 0
+
+
+def test_abandoned_stream_drains_under_leaksan():
+    """Every morsel flight's leak handle closes when the consumer walks
+    away mid-stream (the reference's ``tests/test_stream_pipeline.py:
+    226-236``)."""
+    stream_sched.PIPELINE_FORCE = True
+    shard = _shard(upsert=False)
+    for off in range(8):
+        base = off * 200
+        _put(shard, range(base, base + 200),
+             (i * 3 for i in range(base, base + 200)))
+    with leaksan.activate():
+        src = PortionStreamSource(shard, shard.visible_portions(None))
+        it = src.blocks(64)
+        next(it)
+        it.close()
+        deadline = time.monotonic() + 10.0
+        while leaksan.live("stream.morsel") and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert leaksan.live("stream.morsel") == []
+        stream_conveyor().wait_idle(timeout=10.0)
+        shared_conveyor().wait_idle(timeout=10.0)
+        while leaksan.counts() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert leaksan.counts() == {}

@@ -413,6 +413,11 @@ def analyze_program(program: Program,
     )
 
 
+def verify_program(program: Program, schema: dtypes.Schema) -> list:
+    """Diagnostics only (empty list = program is well-formed)."""
+    return analyze_program(program, schema).diagnostics
+
+
 def check_program(program: Program,
                   schema: dtypes.Schema) -> ProgramAnalysis:
     """Verify and raise ``VerificationError`` (a PlanError) on any

@@ -41,8 +41,8 @@ authenticated principal's binding) resolves through the cluster front
 door (serving/).
 
 The port's own copy of ``ydb_tpu/api/pgwire.py``: the same messages,
-byte for byte, over the port's ``Cluster``. Left out: the leak
-sanitizer's handle per connection (ROADMAP.md queue A, sanitizers).
+byte for byte, over the port's ``Cluster``, with the leak sanitizer's
+handle per connection.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ import threading
 import numpy as np
 
 from ydb_tpu_torch import dtypes, serving
+from ydb_tpu_torch.analysis import leaksan
 from ydb_tpu_torch.engine.oracle import OracleTable
 from ydb_tpu_torch.tx.coordinator import TxResult
 
@@ -342,7 +343,12 @@ class _Handler(socketserver.BaseRequestHandler):
         hint = kv.get(b"tenant", b"").decode() or None
         session.tenant = serving.resolve_tenant(
             srv.cluster, tenant=hint, principal=session.principal)
-        self._message_loop(srv, sock, session)
+        conn = leaksan.track(
+            "serving.conn", f"pgwire:{session.tenant}")
+        try:
+            self._message_loop(srv, sock, session)
+        finally:
+            leaksan.close(conn)
 
     def _message_loop(self, srv, sock, session):
         skip_to_sync = False

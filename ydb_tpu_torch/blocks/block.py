@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import budget_ok, host_ok, memsan, syncsan
 from ydb_tpu_torch.device import resolve_device
 
 
@@ -63,6 +64,8 @@ class TableBlock:
     # ---- construction ----
 
     @staticmethod
+    @host_ok("host->device ingest boundary: stages already-materialized"
+             " host arrays (tail-padding them is part of the transfer)")
     def from_numpy(
         arrays: Mapping[str, np.ndarray],
         schema: dtypes.Schema,
@@ -88,20 +91,27 @@ class TableBlock:
         if cap < n:
             raise ValueError(f"capacity {cap} < rows {n}")
         cols = {}
-        for name in schema.names:
-            f = schema.field(name)
-            tdt = dtypes.torch_dtype(f.type)
-            v = None if validity is None else validity.get(name)
-            if isinstance(arrays[name], torch.Tensor):
-                cols[name] = _tensor_column(arrays[name], v, n, cap, dev, tdt)
-                continue
-            a = np.ascontiguousarray(arrays[name], dtype=f.type.physical)
-            v = (np.ones(n, dtype=np.bool_) if v is None
-                 else np.ascontiguousarray(v, dtype=np.bool_))
-            cols[name] = Column(_padded(a, cap, dev, tdt),
-                                _padded(v, cap, dev, torch.bool))
-        length = torch.tensor(n, dtype=torch.int32, device=dev)
-        return TableBlock(cols, length, schema)
+        with memsan.seam():
+            for name in schema.names:
+                f = schema.field(name)
+                tdt = dtypes.torch_dtype(f.type)
+                v = None if validity is None else validity.get(name)
+                if isinstance(arrays[name], torch.Tensor):
+                    cols[name] = _tensor_column(arrays[name], v, n, cap,
+                                                dev, tdt)
+                    continue
+                a = np.ascontiguousarray(arrays[name],
+                                         dtype=f.type.physical)
+                v = (np.ones(n, dtype=np.bool_) if v is None
+                     else np.ascontiguousarray(v, dtype=np.bool_))
+                cols[name] = Column(_padded(a, cap, dev, tdt),
+                                    _padded(v, cap, dev, torch.bool))
+            length = torch.tensor(n, dtype=torch.int32, device=dev)
+            blk = TableBlock(cols, length, schema)
+        if memsan.armed():
+            memsan.charge(memsan.nbytes_of(blk), "staging",
+                          owner="from_numpy")
+        return blk
 
     # ---- views ----
 
@@ -113,6 +123,8 @@ class TableBlock:
     def device(self) -> torch.device:
         return self.length.device
 
+    @budget_ok("capacity-length index mask: one bounded int32[capacity]"
+               " vector, part of the dispatch's working set")
     def row_mask(self) -> torch.Tensor:
         """bool[capacity]: True for live (non-padding) rows."""
         return torch.arange(self.capacity, dtype=torch.int32,
@@ -137,6 +149,8 @@ class TableBlock:
 
     # ---- host materialization (tests / result delivery) ----
 
+    @host_ok("deliberate result fetch: every column rides ONE batched"
+             " device read")
     def host_columns(
         self, validity: bool = True
     ) -> "tuple[dict[str, np.ndarray], dict[str, np.ndarray]]":
@@ -152,10 +166,12 @@ class TableBlock:
         valid = dict(zip(names, got[len(names):]))
         return data, valid
 
+    @host_ok("deliberate result fetch (delegates to host_columns)")
     def to_numpy(self) -> dict[str, np.ndarray]:
         """Live rows only, as physical numpy arrays (nulls not decoded)."""
         return self.host_columns(validity=False)[0]
 
+    @host_ok("deliberate result fetch: one batched validity read")
     def validity_numpy(self) -> dict[str, np.ndarray]:
         n = int(self.length)
         names = list(self.columns)
@@ -167,13 +183,26 @@ def _fetch(tensors: list) -> list:
     """Host numpy copies of ``tensors``. On the CPU they are views; on a
     device every tensor's bytes are packed into one device buffer (widest
     items first, so each host view stays aligned) and read back in one
-    copy: one wait for the device instead of one per tensor."""
+    copy: one wait for the device instead of one per tensor. The sync
+    sanitizer counts it as one fetch."""
+    with syncsan.batched():
+        return _fetch_batched(tensors)
+
+
+def _fetch_batched(tensors: list) -> list:
     if not tensors or tensors[0].device.type == "cpu":
         return [t.cpu().numpy() for t in tensors]
     order = sorted(range(len(tensors)),
                    key=lambda i: -tensors[i].element_size())
-    packed = torch.cat([tensors[i].contiguous().view(torch.uint8)
-                        for i in order]).cpu().numpy()
+    # one transient packed buffer for the single device read, charged
+    # to memsan's "fetch" component until the read is done
+    with memsan.seam():
+        packed = torch.cat([tensors[i].contiguous().view(torch.uint8)
+                            for i in order])
+    ticket = memsan.charge(packed.numel(), "fetch",
+                           owner="host_columns") if memsan.armed() else None
+    packed = packed.cpu().numpy()
+    memsan.release(ticket)
     out = [None] * len(tensors)
     off = 0
     for i in order:
@@ -212,20 +241,30 @@ def _tensor_column(a: torch.Tensor, v, n: int, cap: int,
     return Column(a, v)
 
 
+@host_ok("one-time aux staging at compile/first-dispatch time; values"
+         " already on the device are passed through untouched")
 def device_aux(aux: Mapping[str, object],
                device: "str | torch.device") -> dict:
     """Stage a compiled program's aux tables (dict masks, gather tables)
     on ``device`` once, passing tensors already there through."""
     dev = torch.device(device)
     out = {}
-    for k, v in aux.items():
-        if isinstance(v, torch.Tensor) and v.device == dev:
-            out[k] = v
-        else:
-            out[k] = torch.as_tensor(np.asarray(v), device=dev)
+    staged = 0
+    with memsan.seam():
+        for k, v in aux.items():
+            if isinstance(v, torch.Tensor) and v.device == dev:
+                out[k] = v
+            else:
+                out[k] = torch.as_tensor(np.asarray(v), device=dev)
+                staged += memsan.nbytes_of(out[k])
+    if staged and memsan.armed():
+        memsan.charge(staged, "staging", owner="device_aux")
     return out
 
 
+@host_ok("concat of the live rows of a bounded list of blocks (a"
+         " scan's partials): one device copy per column per block, and"
+         " the lengths read back once")
 def concat_blocks(blocks: list[TableBlock],
                   capacity: int | None = None) -> TableBlock:
     """Concat of the live rows of ``blocks``, in order, into one block on
@@ -252,16 +291,23 @@ def concat_blocks(blocks: list[TableBlock],
     if cap < n:
         raise ValueError(f"capacity {cap} < rows {n}")
     cols = {}
-    for name in schema.names:
-        tdt = dtypes.torch_dtype(schema.field(name).type)
-        data = torch.zeros(cap, dtype=tdt, device=dev)
-        valid = torch.zeros(cap, dtype=torch.bool, device=dev)
-        off = 0
-        for b, m in zip(blocks, lens):
-            c = b.columns[name]
-            data[off:off + m] = c.data[:m].to(dev)
-            valid[off:off + m] = c.validity[:m].to(dev)
-            off += m
-        cols[name] = Column(data, valid)
-    length = torch.tensor(n, dtype=torch.int32, device=dev)
-    return TableBlock(cols, length, schema)
+    with memsan.seam():
+        for name in schema.names:
+            tdt = dtypes.torch_dtype(schema.field(name).type)
+            data = torch.zeros(cap, dtype=tdt, device=dev)
+            valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+            off = 0
+            for b, m in zip(blocks, lens):
+                c = b.columns[name]
+                data[off:off + m] = c.data[:m].to(dev)
+                valid[off:off + m] = c.validity[:m].to(dev)
+                off += m
+            cols[name] = Column(data, valid)
+        length = torch.tensor(n, dtype=torch.int32, device=dev)
+        blk = TableBlock(cols, length, schema)
+    if memsan.armed():
+        # the reference's concat re-stages through from_numpy: the same
+        # component
+        memsan.charge(memsan.nbytes_of(blk), "staging",
+                      owner="concat_blocks")
+    return blk

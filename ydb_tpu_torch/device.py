@@ -13,6 +13,8 @@ import threading
 
 import torch
 
+from ydb_tpu_torch.analysis import sanitizer
+
 DEFAULT_DEVICE = "cuda"
 
 #: Held by a CUDA graph capture (``ssa/plan_fuse.py``: warm-up and
@@ -20,8 +22,11 @@ DEFAULT_DEVICE = "cuda"
 #: (block staging on a scan's producer thread, resident promotion). A
 #: capture in the default mode fails when another thread calls the CUDA
 #: API meanwhile, and the warm-up's ``set_sync_debug_mode("error")`` is
-#: process-wide.
-capture_lock = threading.RLock()
+#: process-wide. A thread-sanitizer tracked lock always: it is built at
+#: import, before a test can arm the sanitizer, and its idle cost is one
+#: held-count update per acquire (the ``obs/probes.py`` registry idiom of
+#: the reference).
+capture_lock = sanitizer.TrackedRLock("device.capture_lock")
 
 
 class DeviceWorkLock:
@@ -41,9 +46,15 @@ class DeviceWorkLock:
     calling thread's own shared holds while it waits and takes them back
     after, so a statement that needs a capture does not wait for itself;
     waiting writers hold back new shared entries (no starvation).
+
+    The thread sanitizer sees its holds: each shared hold as
+    ``<name>[shared]`` (it protects reads only) and the exclusive hold as
+    ``<name>`` (``analysis/sanitizer.py``, ``hold``/``unhold``).
     """
 
-    def __init__(self):
+    def __init__(self, name: str = "device.work_lock"):
+        self.name = name
+        self._shared_name = name + sanitizer.SHARED
         self._cv = threading.Condition(threading.Lock())
         self._readers: dict[int, int] = {}
         self._writer: int | None = None
@@ -58,9 +69,11 @@ class DeviceWorkLock:
                 while self._writer is not None or self._writers_waiting:
                     self._cv.wait()
             self._readers[me] = self._readers.get(me, 0) + 1
+        sanitizer.hold(self._shared_name)
         try:
             yield
         finally:
+            sanitizer.unhold(self._shared_name)
             with self._cv:
                 left = self._readers[me] - 1
                 if left:
@@ -88,9 +101,11 @@ class DeviceWorkLock:
                     self._writers_waiting -= 1
                 self._writer = me
                 self._writer_depth = 1
+        sanitizer.hold(self.name)
         try:
             yield
         finally:
+            sanitizer.unhold(self.name)
             with self._cv:
                 self._writer_depth -= 1
                 if self._writer_depth == 0:
@@ -106,15 +121,18 @@ class DeviceWorkLock:
         with self._cv:
             if self._writer == me:
                 self._writer_depth += 1
+                sanitizer.hold(self.name)
                 return True
             if self._writer is not None or any(
                     t != me for t in self._readers):
                 return False
             self._writer = me
             self._writer_depth = 1
+            sanitizer.hold(self.name)
             return True
 
     def release_exclusive(self) -> None:
+        sanitizer.unhold(self.name)
         with self._cv:
             self._writer_depth -= 1
             if self._writer_depth == 0:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import host_ok
 from ydb_tpu_torch.blocks.block import TableBlock, concat_blocks, device_aux
 from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.dq.graph import (
@@ -650,6 +651,8 @@ def _join_out_schema(j, probe_schema: dtypes.Schema,
     return dtypes.Schema(tuple(fields))
 
 
+@host_ok("zero-row result block: one bounded 0-byte alloc per column,"
+         " only when a stage produced no rows")
 def _empty_block(schema: dtypes.Schema, device: torch.device) -> TableBlock:
     cols = {
         f.name: np.empty(0, dtype=f.type.physical) for f in schema.fields

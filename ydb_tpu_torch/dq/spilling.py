@@ -1,7 +1,7 @@
 """Channel spilling: bounded in-memory buffers overflow to blob storage.
 
-The port's own copy of ``ydb_tpu/dq/spilling.py`` (without its
-leak-sanitizer handles). Payloads are host numpy dicts, encoded with
+The port's own copy of ``ydb_tpu/dq/spilling.py``, with its
+leak-sanitizer handle per spilled blob. Payloads are host numpy dicts, encoded with
 ``np.savez`` exactly as the reference encodes them.
 
 Reference: a per-node spilling service writes channel/compute blobs to
@@ -19,6 +19,7 @@ import itertools
 
 import numpy as np
 
+from ydb_tpu_torch.analysis import leaksan
 from ydb_tpu_torch.engine.blobs import BlobStore, MemBlobStore
 
 
@@ -47,6 +48,8 @@ class Spiller:
         self._spilled: set[int] = set()
         self._mem_bytes = 0
         self.spill_count = 0
+        # leak-sanitizer handle per live spilled blob; empty when off
+        self._leaks: dict[int, object] = {}
 
     @staticmethod
     def _size(payload: dict[str, np.ndarray]) -> int:
@@ -59,6 +62,9 @@ class Spiller:
             self.store.put(f"{self.prefix}/{sid}", _encode(payload))
             self._spilled.add(sid)
             self.spill_count += 1
+            lk = leaksan.track("dq.spill", f"{self.prefix}/{sid}")
+            if lk is not None:
+                self._leaks[sid] = lk
         else:
             self._mem[sid] = payload
             self._mem_bytes += size
@@ -82,6 +88,8 @@ class Spiller:
             self._spilled.discard(sid)
             raw = self.store.get(f"{self.prefix}/{sid}")
             self.store.delete(f"{self.prefix}/{sid}")
+            if self._leaks:
+                leaksan.close(self._leaks.pop(sid, None))
             return _decode(raw)
         raise KeyError(sid)
 
@@ -94,6 +102,8 @@ class Spiller:
         is per-task and the task is gone."""
         for sid in self._spilled:
             self.store.delete(f"{self.prefix}/{sid}")
+            if self._leaks:
+                leaksan.close(self._leaks.pop(sid, None))
         self._spilled.clear()
         self._mem.clear()
         self._mem_bytes = 0

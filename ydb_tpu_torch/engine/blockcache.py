@@ -2,8 +2,7 @@
 
 The port of ``ydb_tpu/engine/blockcache.py``: entries hold torch
 ``TableBlock``s on the scan's device, and the auto budget is on when
-CUDA is available (the reference asks ``jax.default_backend()``). The
-leak- and thread-sanitizer hooks come with ROADMAP.md queue A item 6.
+CUDA is available (the reference asks ``jax.default_backend()``).
 The accelerator lift of the reference's shared page cache
 (ydb/core/tablet_flat/shared_sausagecache.cpp:194): warm scans reuse
 decoded column blocks pinned in accelerator HBM, skipping blob IO, the
@@ -23,6 +22,8 @@ from __future__ import annotations
 import collections
 import os
 import threading
+
+from ydb_tpu_torch.analysis import leaksan, sanitizer
 
 #: single-flight wait bound: a filler stuck past this (wedged blob
 #: store, debugger) stops blocking waiters — they fill uncached instead
@@ -52,13 +53,17 @@ class DeviceBlockCache:
         # blocks live, which picks the auto budget
         self._budget = budget
         self.device = device
-        self._entries: collections.OrderedDict = collections.OrderedDict()
+        # sanitizer-tracked under YDB_TPU_TORCH_TSAN=1 (a per-instance
+        # name: distinct caches must not share lockset state)
+        self._entries = sanitizer.share(
+            collections.OrderedDict(), f"blockcache.{id(self):x}")
         self._nbytes = 0
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock(f"blockcache.{id(self):x}.lock")
         # key -> threading.Event: per-key in-flight fills (single-flight
         # dedup — concurrent scans missing the same key must not both
         # decode and both tee)
-        self._flights: dict = {}
+        self._flights = sanitizer.share(
+            {}, f"blockcache.{id(self):x}.flights")
         self.hits = 0
         self.misses = 0
         self.flight_waits = 0
@@ -120,6 +125,7 @@ class DeviceBlockCache:
         nbytes = 0
         # pass-through collection loop: bounded by BLOCK count (the
         # morsel stream), device refs only — no per-row work, no copy
+        # ydb-lint: disable=H006
         for b in blocks:
             if collected is not None:
                 nbytes += sum(
@@ -173,6 +179,8 @@ class DeviceBlockCache:
                 elif key not in self._flights:
                     # we are the filler
                     self._flights[key] = threading.Event()
+                    fh = leaksan.track("blockcache.flight",
+                                       str(key)[:80])
                     blocks = None
                     ev = None
                 else:
@@ -199,6 +207,7 @@ class DeviceBlockCache:
                 # they re-check and fill (or wait) themselves
                 with self._lock:
                     ev = self._flights.pop(key, None)
+                leaksan.close(fh)
                 if ev is not None:
                     ev.set()
             return

@@ -7,8 +7,7 @@ with ``narrow``/``torch.cat`` (``engine/staging.py``) and reuse the
 resident tensors as-is in the aligned case. The auto budget is on when
 the shard's device is CUDA (the reference asks
 ``jax.default_backend()``). The mesh device slices come with ROADMAP.md
-queue A item 8; the chaos, probe, timeline and sanitizer hooks with
-items 6-7.
+queue A item 8; the chaos, probe and timeline hooks with item 7.
 
 The third level of the storage hierarchy (blob store -> host blocks ->
 device-resident columns) and the engine-side answer to ROADMAP item 1:
@@ -51,11 +50,11 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 
 import numpy as np
 import torch
 
+from ydb_tpu_torch.analysis import leaksan, memsan, sanitizer
 from ydb_tpu_torch.blocks.block import Column, TableBlock
 from ydb_tpu_torch.chaos import deadline as statement_deadline
 from ydb_tpu_torch import device as device_mod
@@ -126,9 +125,11 @@ class ResidentStore:
         #: where promoted columns live (the shard's device)
         self.device = torch.device(
             device_mod.DEFAULT_DEVICE if device is None else device)
-        self._lock = threading.Lock()
+        # sanitizer-tracked under YDB_TPU_TORCH_TSAN=1; per-instance
+        # names so distinct stores never share lockset state
+        self._lock = sanitizer.make_lock(f"resident.{name}.lock")
         # (portion_id, column) -> _Entry
-        self._cols: dict = {}
+        self._cols = sanitizer.share({}, f"resident.{name}.cols")
         # portion_id -> {rows, nbytes, cols, heat, tick, zskips}
         self._info: dict = {}
         # portion_id -> host-path access count (heat toward promotion)
@@ -263,7 +264,8 @@ class ResidentStore:
         if not self.enabled():
             return False
         budget = self.budget()
-        entries = self._to_device(cols, valid or {})
+        with memsan.seam():
+            entries = self._to_device(cols, valid or {})
         total = sum(e.nbytes for e in entries.values())
         if total > budget:
             # a single portion larger than the whole valve can never be
@@ -289,6 +291,10 @@ class ResidentStore:
             self._nbytes += added
             if added:
                 self.promotions += 1
+                if memsan.armed():
+                    info.setdefault("tickets", []).append(
+                        memsan.charge(added, "resident",
+                                      owner=portion_id))
             self._evict_to_budget_locked(budget, keep=portion_id)
         return added > 0
 
@@ -320,6 +326,8 @@ class ResidentStore:
             e = self._cols.pop((portion_id, n), None)
             if e is not None:
                 self._nbytes -= e.nbytes
+        for t in info.get("tickets", ()):
+            memsan.release(t, evicted=True)
 
     def promote_async(self, portion_id: int, rows: int, loader) -> bool:
         """Queue a promotion on the shared conveyor. ``loader()`` runs
@@ -335,6 +343,8 @@ class ResidentStore:
                     len(self._inflight) >= MAX_INFLIGHT:
                 return False
             self._inflight.add(portion_id)
+            fh = leaksan.track("resident.flight",
+                               f"{self.name}:{portion_id}")
             # compact finished handles while here (drain bookkeeping)
             self._pending = [h for h in self._pending
                              if not h.done.is_set()]
@@ -351,6 +361,7 @@ class ResidentStore:
             finally:
                 with self._lock:
                     self._inflight.discard(portion_id)
+                leaksan.close(fh)
 
         from ydb_tpu_torch.runtime.conveyor import shared_conveyor
 
@@ -365,6 +376,7 @@ class ResidentStore:
         except RuntimeError:  # conveyor shut down (tests teardown)
             with self._lock:
                 self._inflight.discard(portion_id)
+            leaksan.close(fh)
             return False
         with self._lock:
             self._pending.append(h)
@@ -411,6 +423,9 @@ class ResidentStore:
 
     def clear(self) -> None:
         with self._lock:
+            for info in self._info.values():
+                for t in info.get("tickets", ()):
+                    memsan.release(t)
             self._cols.clear()
             self._info.clear()
             self._miss_heat.clear()

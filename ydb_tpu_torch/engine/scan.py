@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import budget_ok, memsan
 from ydb_tpu_torch.blocks.block import (
     Column,
     TableBlock,
@@ -84,6 +85,8 @@ class ColumnSource:
             yield TableBlock.from_numpy(arrays, sch, validity, capacity=cap,
                                         device=device)
 
+    @budget_ok("a whole table copied to the device once, on the caller's"
+               " request: the caller holds it as a tensor-held source")
     def to_device(self, device: "str | torch.device | None" = None
                   ) -> "ColumnSource":
         """This table with every column held as a tensor on ``device``
@@ -109,17 +112,20 @@ def merge_blocks_device(blocks: list[TableBlock]) -> TableBlock:
     if len(blocks) == 1:
         return blocks[0]
     schema = blocks[0].schema
-    live = torch.cat([b.row_mask() for b in blocks])
-    cols = {}
-    for n in schema.names:
-        data = torch.cat([b.columns[n].data for b in blocks])
-        val = torch.cat([b.columns[n].validity for b in blocks])
-        cols[n] = Column(data, val)
-    # live rows sit at each segment's start, not in one prefix: give the
-    # concat full-capacity length so compact's row_mask covers them all
-    length = torch.full((), live.shape[0], dtype=torch.int32,
-                        device=live.device)
-    return kernels.compact(TableBlock(cols, length, schema), live)
+    # the merged partials are the dispatch's working set
+    with memsan.seam():
+        live = torch.cat([b.row_mask() for b in blocks])
+        cols = {}
+        for n in schema.names:
+            data = torch.cat([b.columns[n].data for b in blocks])
+            val = torch.cat([b.columns[n].validity for b in blocks])
+            cols[n] = Column(data, val)
+        # live rows sit at each segment's start, not in one prefix: give
+        # the concat full-capacity length so compact's row_mask covers
+        # them all
+        length = torch.full((), live.shape[0], dtype=torch.int32,
+                            device=live.device)
+        return kernels.compact(TableBlock(cols, length, schema), live)
 
 
 def required_columns(program: Program, schema: dtypes.Schema) -> tuple[str, ...]:
@@ -264,6 +270,9 @@ class ScanExecutor:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
+            # one-off sync: times a program's first run (``_timed_first``;
+            # the warm arm stays async)
+            # ydb-lint: disable=H001
             torch.cuda.synchronize(self.device)
 
     def _timed_first(self, flag: str, fn, *args):
@@ -334,9 +343,16 @@ class ScanExecutor:
             done.record()
             window.append(done)
             if len(window) > self.INFLIGHT_BLOCKS:
-                # backpressure: wait for the OLDEST in-flight block only
+                # deliberate backpressure: wait for the OLDEST in-flight
+                # block only once the window fills — bounded by
+                # INFLIGHT_BLOCKS, not rows
+                # ydb-lint: disable=H001
                 window.popleft().synchronize()
 
+        # the morsel loop: iterations are bounded by block
+        # count (capacity-quantized morsels), never by rows; each
+        # iteration is one async device dispatch
+        # ydb-lint: disable=H006
         for b in blocks:
             statement_deadline.check_current("scan")
             with computing():

@@ -28,14 +28,15 @@ Shared blocks are handed to dispatches that never write them: the
 port's ``FusedPlan.run_shared`` and ``run_stacked`` copy staged blocks
 into their graphs' static inputs (the port never donates).
 
-The port's own copy of ``ydb_tpu/engine/scanshare.py``, without the
-leak sanitizer's handle per flight (ROADMAP.md queue A, sanitizers).
+The port's own copy of ``ydb_tpu/engine/scanshare.py``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+
+from ydb_tpu_torch.analysis import leaksan, sanitizer
 
 
 #: a filler stuck past this (wedged blob store) stops blocking
@@ -58,8 +59,9 @@ class ScanShare:
 
     def __init__(self, linger_seconds: float = 0.05):
         self.linger_seconds = linger_seconds
-        self._lock = threading.Lock()
-        self._flights: dict = {}
+        self._lock = sanitizer.make_lock(f"scanshare.{id(self):x}")
+        self._flights = sanitizer.share(
+            {}, f"scanshare.{id(self):x}.flights")
         self.staged = 0    # stage_fn actually ran
         self.attached = 0  # served from another statement's flight
 
@@ -89,6 +91,7 @@ class ScanShare:
             if fl.error is not None:
                 raise fl.error
             return fl.block
+        lk = leaksan.track("scanshare.flight", str(key)[:80])
         try:
             fl.block = stage_fn()
             self.staged += 1
@@ -104,6 +107,7 @@ class ScanShare:
                 with self._lock:
                     self._flights.pop(key, None)
             fl.event.set()
+            leaksan.close(lk)
 
     def _sweep(self, now: float) -> None:
         # drop completed flights past their linger window (under _lock)

@@ -5,8 +5,9 @@ on its ``device`` (CUDA unless the caller passes another), where its
 block cache and resident tier hold their tensors. The pruning, stage and
 pipeline counters stay plain attributes (``last_scan_pruning``,
 ``last_scan_stages``, ``last_scan_pipeline``, ``pruning_totals``); the
-reference's thread-sanitizer, probe and tracing hooks come with
-ROADMAP.md queue A items 6-7.
+scan cache, its lock, the stats lock and ``pruning_totals`` are
+thread-sanitizer tracked. The reference's probe and tracing hooks come
+with ROADMAP.md queue A item 7.
 
 Mirror of the reference's ColumnShard + column engine
 (tx/columnshard/columnshard_impl.h:134; TColumnEngineForLogs
@@ -50,6 +51,7 @@ from collections import OrderedDict
 import numpy as np
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import sanitizer
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
 from ydb_tpu_torch.engine.blobs import BlobStore
 from ydb_tpu_torch.engine.blockcache import DeviceBlockCache
@@ -156,9 +158,15 @@ class ColumnShard:
         # compiled-scan cache: (program, key_spaces) -> (executor, sizes)
         # LRU-bounded at config.scan_cache_entries: compiled executors
         # pin staged aux tensors, and ad-hoc workloads mint a fresh key
-        # per distinct program — unbounded, that's a leak
-        self._scan_cache: OrderedDict = OrderedDict()
-        self._scan_cache_lock = threading.Lock()
+        # per distinct program — unbounded, that's a leak. Under
+        # YDB_TPU_TORCH_TSAN=1 the cache and its lock are tracked;
+        # per-INSTANCE state names (shard_id alone would fuse lockset
+        # state across a reboot or two clusters reusing shard ids)
+        self._scan_cache = sanitizer.share(
+            OrderedDict(),
+            f"columnshard.{shard_id}.{id(self):x}._scan_cache")
+        self._scan_cache_lock = sanitizer.make_lock(
+            f"columnshard.{shard_id}.{id(self):x}._scan_cache_lock")
         # stage snapshot of the most recent scan (read/merge/stage/
         # compute seconds) — obs surface for bench + the viewer
         self.last_scan_stages: dict = {}
@@ -172,12 +180,14 @@ class ColumnShard:
         self.last_scan_executor: "ScanExecutor | None" = None
         # pruning effectiveness of the most recent scan plus cumulative
         # totals. Guarded by _stats_lock: concurrent scans update both.
-        self._stats_lock = threading.Lock()
+        self._stats_lock = sanitizer.make_lock(
+            f"columnshard.{shard_id}.{id(self):x}._stats_lock")
         self.last_scan_pruning: dict = {}
-        self.pruning_totals: dict = {
-            "scans": 0, "portions_total": 0, "portions_skipped": 0,
-            "chunks_read": 0, "chunks_skipped": 0,
-            "chunks_fastpath": 0, "filters_dropped": 0}
+        self.pruning_totals: dict = sanitizer.share(
+            {"scans": 0, "portions_total": 0, "portions_skipped": 0,
+             "chunks_read": 0, "chunks_skipped": 0,
+             "chunks_fastpath": 0, "filters_dropped": 0},
+            f"columnshard.{shard_id}.{id(self):x}.pruning_totals")
         # HBM-resident decoded-block cache for warm scans, keyed by the
         # immutable (portion ids, read cols, block rows)
         self.block_cache = DeviceBlockCache(

@@ -23,6 +23,13 @@ So each scan gets one ``Stager``:
 
 On the CPU a ``Stager`` is ``TableBlock.from_numpy`` and ``accept`` a
 no-op.
+
+Memory sanitizer: a CUDA block built here is charged to ``staging`` as
+``TableBlock.from_numpy`` charges its own, and each pinned slab to a
+component of its own, ``slabs`` (host bytes, pinned for the copy engine;
+released when a larger slab replaces it). A block assembled from
+resident columns allocates under a seam without a charge: its columns
+are the resident tier's, charged at promotion, or slices of them.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import memsan
 from ydb_tpu_torch.blocks.block import Column, TableBlock
 from ydb_tpu_torch.device import capture_lock, resolve_device
 
@@ -78,6 +86,7 @@ class Stager:
         self.cuda = self.device.type == "cuda"
         self._stream = None
         self._slabs: list = [None, None]
+        self._slab_tickets: list = [None, None]
         self._events: list = [None, None]
         self._turn = 0
 
@@ -99,6 +108,10 @@ class Stager:
             slab = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                                pin_memory=True)
             self._slabs[i] = slab
+            if memsan.armed():
+                memsan.release(self._slab_tickets[i])
+                self._slab_tickets[i] = memsan.charge(
+                    slab.numel(), "slabs", owner="stager")
         self._cur = i
         return slab
 
@@ -128,7 +141,7 @@ class Stager:
             need += -(-a.nbytes // _ALIGN) * _ALIGN
             if v is not None:
                 need += -(-v.nbytes // _ALIGN) * _ALIGN
-        with capture_lock:
+        with capture_lock, memsan.seam():
             slab = self._slab(need)
             host = slab.numpy()
             s = self._side()
@@ -163,7 +176,11 @@ class Stager:
                 ev = torch.cuda.Event()
                 ev.record(s)
             self._events[self._cur] = ev
-        return StagedBlock(out, length, sch, ready=ev)
+        blk = StagedBlock(out, length, sch, ready=ev)
+        if memsan.armed():
+            memsan.charge(memsan.nbytes_of(blk), "staging",
+                          owner="stager")
+        return blk
 
     def assemble(self, build) -> TableBlock:
         """Run ``build(side_stream_or_None)`` — device slicing and
@@ -171,8 +188,9 @@ class Stager:
         the block it returns. ``build`` records the side stream on the
         tensors it reads (``reading``)."""
         if not self.cuda:
-            return build(None)
-        with capture_lock:
+            with memsan.seam():
+                return build(None)
+        with capture_lock, memsan.seam():
             s = self._side()
             with torch.cuda.stream(s):
                 blk = build(s)

@@ -3,9 +3,9 @@
 The port of ``ydb_tpu/engine/stream_sched.py``. Its double-buffered
 device slabs are pinned host slabs copied on the scan's side CUDA
 stream and fenced with an event per block (``engine/staging.py``); the
-rest is the reference's host scheduling, unchanged. The leak- and
-thread-sanitizer and timeline hooks come with ROADMAP.md queue A items
-6-7.
+rest is the reference's host scheduling, unchanged, with its leak
+handle per morsel and its tracked lock. The timeline hooks come with
+ROADMAP.md queue A item 7.
 
 The serialized OOC read path runs blob read -> decode -> stage ->
 compute as one chain per portion: a single conveyor producer does all
@@ -62,6 +62,7 @@ import contextlib
 import os
 import threading
 
+from ydb_tpu_torch.analysis import leaksan, sanitizer
 from ydb_tpu_torch.chaos import deadline as statement_deadline
 from ydb_tpu_torch.engine.portion import (_TRANSIENT_READ,
                                           PortionChunkReader,
@@ -233,18 +234,20 @@ _PENDING, _RUNNING, _DONE, _FAILED, _CANCELLED = range(5)
 class _FlightSlot:
     """One admitted IO morsel crossing threads. State transitions are
     guarded by the scheduler lock; ``event`` fires on any terminal
-    worker outcome. It retires exactly once (consume or cancel) —
-    consumer-owned, so a worker never races the retire."""
+    worker outcome. The leaksan handle opens at admission and closes
+    exactly once at retire (consume or cancel) — consumer-owned, so a
+    worker never races the close."""
 
     __slots__ = ("morsel", "state", "payloads", "error", "event",
-                 "retired", "idx")
+                 "leak", "retired", "idx")
 
-    def __init__(self, morsel, idx):
+    def __init__(self, morsel, leak, idx):
         self.morsel = morsel
         self.state = _PENDING
         self.payloads = None
         self.error = None
         self.event = threading.Event()
+        self.leak = leak
         self.retired = False
         self.idx = idx
 
@@ -263,7 +266,8 @@ class StreamScheduler:
         self._plan = plan_morsels(parts, self.names, device)
         self._plan_done = False
         self._queue: collections.deque = collections.deque()
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock(
+            f"stream_sched.{id(self):x}.lock")
         self._budget = stream_budget()
         self._inflight_bytes = 0
         self._inflight_io = 0
@@ -312,13 +316,16 @@ class StreamScheduler:
     def _launch(self, m: _IoMorsel) -> _FlightSlot:
         from ydb_tpu_torch.runtime.conveyor import stream_conveyor
 
-        fl = _FlightSlot(m, self._next_idx)
+        fl = _FlightSlot(m, leaksan.track("stream.morsel", m.meta.blob_id),
+                         self._next_idx)
         self._next_idx += 1
         with self._lock:
             self._inflight_bytes += m.est_bytes
             self._inflight_io += 1
             self.stats["morsels_io"] += 1
             self.stats["est_bytes"] += m.est_bytes
+            # fixed key set (initialized in __init__), counters only —
+            # bounded by construction  # ydb-lint: disable=R007
             self.stats["peak_inflight_bytes"] = max(
                 self.stats["peak_inflight_bytes"], self._inflight_bytes)
         try:
@@ -426,15 +433,17 @@ class StreamScheduler:
             self._retire(fl)
 
     def _retire(self, fl: _FlightSlot) -> None:
-        """Idempotent terminal accounting: exactly one budget credit per
-        flight, no matter which of consume / cancel / close gets there
-        first."""
+        """Idempotent terminal accounting: exactly one budget credit
+        and one leak close per flight, no matter which of consume /
+        cancel / close gets there first."""
         with self._lock:
             if fl.retired:
                 return
             fl.retired = True
             self._inflight_bytes -= fl.morsel.est_bytes
             self._inflight_io -= 1
+            lk, fl.leak = fl.leak, None
+        leaksan.close(lk)
 
     def items(self):
         """The in-order ('dev'/'host') item stream for

@@ -52,10 +52,7 @@ input sets. Each member's scan sites stage into FRESH blocks
 path's staging writes the plan's single static input block, which
 stacked members over different sources would all share. The leader
 dispatches holding ``device.work_lock`` shared (a capture retries it
-exclusively); members waiting on their leader hold none of it. Left
-out until their ROADMAP.md
-queue A items: the leak sanitizer's handle per member and the tracked
-lock and condition of the thread sanitizer.
+exclusively); members waiting on their leader hold none of it.
 """
 
 from __future__ import annotations
@@ -64,6 +61,7 @@ import os
 import threading
 import time
 
+from ydb_tpu_torch.analysis import leaksan, sanitizer
 from ydb_tpu_torch.chaos import deadline as statement_deadline
 from ydb_tpu_torch.device import work_lock
 from ydb_tpu_torch.engine.scanshare import ScanShare
@@ -139,8 +137,9 @@ class BatchDispatcher:
                           else float(window_ms))
         self.max_batch = (_env_max_batch() if max_batch is None
                           else max(2, int(max_batch)))
-        self._cv = threading.Condition()
-        self._open: dict = {}  # key -> _Group
+        self._cv = sanitizer.make_condition(f"batch.{id(self):x}")
+        self._open = sanitizer.share(
+            {}, f"batch.{id(self):x}.open")  # key -> _Group
         self.share = ScanShare()
         self._batch_seq = 0
         # counters (mutated under _cv's lock; read by run_background)
@@ -178,34 +177,39 @@ class BatchDispatcher:
             return None
         key = sig.cache_key(db)
         member = _Member(db, self._identity_vector(sig, db), active_tok)
-        with tracing.span("dispatch.batch") as sp:
-            with self._cv:
-                g = self._open.get(key)
-                leader = g is None or g.closed or g.full
+        lk = leaksan.track("batch.member", f"m{id(member):x}",
+                           owner=active_tok)
+        try:
+            with tracing.span("dispatch.batch") as sp:
+                with self._cv:
+                    g = self._open.get(key)
+                    leader = g is None or g.closed or g.full
+                    if leader:
+                        g = _Group(key, sig)
+                        self._open[key] = g
+                    g.members.append(member)
+                    if len(g.members) >= self.max_batch:
+                        g.full = True
+                        self._cv.notify_all()
                 if leader:
-                    g = _Group(key, sig)
-                    self._open[key] = g
-                g.members.append(member)
-                if len(g.members) >= self.max_batch:
-                    g.full = True
-                    self._cv.notify_all()
-            if leader:
-                out = self._lead(g, cluster)
-            else:
-                out = self._follow(g, member)
-            if sp.recording:
-                sp.set(batch_id=g.batch_id,
-                       batch_size=len(g.members),
-                       shared_scan=member.shared_scan,
-                       wait_seconds=round(
-                           max(0.0, g.t_closed - member.t_enq), 6),
-                       execute_seconds=round(g.execute_seconds, 6))
-            if cluster is not None and active_tok is not None:
-                cluster._update_active(
-                    active_tok, batch_id=g.batch_id,
-                    batch_size=len(g.members),
-                    shared_scan=member.shared_scan)
-        return out
+                    out = self._lead(g, cluster)
+                else:
+                    out = self._follow(g, member)
+                if sp.recording:
+                    sp.set(batch_id=g.batch_id,
+                           batch_size=len(g.members),
+                           shared_scan=member.shared_scan,
+                           wait_seconds=round(
+                               max(0.0, g.t_closed - member.t_enq), 6),
+                           execute_seconds=round(g.execute_seconds, 6))
+                if cluster is not None and active_tok is not None:
+                    cluster._update_active(
+                        active_tok, batch_id=g.batch_id,
+                        batch_size=len(g.members),
+                        shared_scan=member.shared_scan)
+            return out
+        finally:
+            leaksan.close(lk)
 
     # -- staging identity ---------------------------------------------
 

@@ -18,14 +18,15 @@ limit requests wait in a bounded FIFO; past the queue bound they are
 rejected (OVERLOADED). finish() promotes the queue head. Pools are
 config-reloadable (Console dynamic-config shape).
 
-The port's own copy of ``ydb_tpu/kqp/rm.py``, without the leak
-sanitizer's per-grant handles (ROADMAP.md queue A, sanitizers).
+The port's own copy of ``ydb_tpu/kqp/rm.py``.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
+
+from ydb_tpu_torch.analysis import leaksan
 
 
 
@@ -43,6 +44,9 @@ class ResourceManager:
         self.compute_slots = compute_slots
         self._lock = threading.Lock()
         self._grants: dict[str, tuple[int, int]] = {}
+        # leak-sanitizer handle per grant (empty when the sanitizer is
+        # off); guarded by _lock like _grants
+        self._leaks: dict[str, object] = {}
 
     def used(self) -> tuple[int, int]:
         with self._lock:
@@ -68,11 +72,18 @@ class ResourceManager:
                 raise ResourceExhausted(
                     f"slots: want {slots}, "
                     f"free {self.compute_slots - cur_s + old[1]}")
+            first = query_id not in self._grants
             self._grants[query_id] = (memory, slots)
+            if first:
+                lk = leaksan.track("rm.slot", query_id, owner=query_id)
+                if lk is not None:
+                    self._leaks[query_id] = lk
 
     def release(self, query_id: str) -> None:
         with self._lock:
             self._grants.pop(query_id, None)
+            if self._leaks:
+                leaksan.close(self._leaks.pop(query_id, None))
 
     def snapshot(self) -> dict:
         """Planner feed (resource info exchange analog)."""

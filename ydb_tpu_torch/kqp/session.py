@@ -28,8 +28,7 @@ Left out, each for a later item of ROADMAP.md queue A, with a typed
 ``PlanError`` naming it where a statement reaches it: the row store
 (``WITH (store = row)``, UPDATE, DELETE, INSERT inside a transaction)
 and sequences (``CREATE SEQUENCE``, ``nextval``); changefeeds and
-topics; sys views; the quoter; the mesh executor; the sanitizer hooks
-(leak, sync and memory sanitizers, ``host_ok``); the ``kqp.plan_cache``
+topics; sys views; the quoter; the mesh executor; the ``kqp.plan_cache``
 and ``query.slow`` probes (the slow-query check still counts); the
 chaos site ``session.admit``; the page-cache pressure reaction and the
 movement and chaos counters of ``run_background``.
@@ -47,6 +46,10 @@ from collections import OrderedDict, deque
 import numpy as np
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import leaksan as _leaksan
+from ydb_tpu_torch.analysis import memsan as _memsan
+from ydb_tpu_torch.analysis import sanitizer as _san
+from ydb_tpu_torch.analysis import syncsan as _syncsan
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
 from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.engine.blobs import BlobStore, MemBlobStore
@@ -298,9 +301,14 @@ class Cluster:
         # in-flight statement registry: token -> {sql, start, stage,
         # ...}; sessions register before admission and unregister in a
         # finally, so a failed statement always clears
-        self._active_lock = threading.Lock()
-        self.active_queries: dict = {}
+        self._active_lock = _san.make_lock(f"kqp.{id(self):x}.active")
+        self.active_queries = _san.share(
+            {}, f"kqp.{id(self):x}.active_queries")
         self._active_seq = 0
+        # leak-sanitizer handle per registry row (guarded by
+        # _active_lock; kept OUT of the row dicts, which snapshot APIs
+        # copy); empty whenever the sanitizer is off
+        self._active_leaks: dict[int, object] = {}
         self.slow_queries = 0
         self._dict_seq = 0
         self._dict_durable: dict[str, int] = {}
@@ -343,13 +351,19 @@ class Cluster:
         self._compile_cache.clear()
 
     def stop(self, timeout: float = 30.0) -> None:
-        """Orderly node teardown: stop the statistics cadence thread and
+        """Orderly node teardown: stop the statistics cadence thread,
         wait for queued background work (promotions, prefetch,
-        compaction tasks) to drain off the shared conveyor."""
+        compaction tasks) to drain off the shared conveyor, then — under
+        YDB_TPU_TORCH_LEAKSAN — prove every tracked resource handle in
+        the process drained to zero (:class:`~ydb_tpu_torch.analysis.
+        leaksan.LeakError` names survivors). The drain check is
+        process-global, so call it with no other cluster mid-statement
+        (tests; single-node serving)."""
         self.stats.stop()
         from ydb_tpu_torch.runtime.conveyor import shared_conveyor
 
         shared_conveyor().wait_idle(timeout=timeout)
+        _leaksan.assert_drained(where="Cluster.stop")
 
     # ---- dict durability (cluster-wide journal) ----
 
@@ -586,6 +600,20 @@ class Cluster:
                                         tenant=tname)
                 for k in ("inflight", "queued"):
                     g.counter(k).set(row[k])
+        # device-memory ledger (only when the footprint sanitizer is
+        # armed): per-component live/peak bytes plus the process-wide
+        # peak gauge under component="devmem"
+        if _memsan.armed():
+            for comp, t in _memsan.component_totals().items():
+                g = self.counters.group(component="devmem", pool=comp)
+                g.counter("live_bytes").set(t["live"])
+                g.counter("peak_bytes").set(t["peak"])
+                g.counter("charges").set(t["charges"])
+                g.counter("releases").set(t["releases"])
+                g.counter("evictions").set(t["evictions"])
+            self.counters.group(component="devmem").counter(
+                "global_peak_bytes").set(_memsan.global_peak())
+            stats["devmem_peak_bytes"] = _memsan.global_peak()
         stats["slow_queries"] = self.check_slow_queries()
         return stats
 
@@ -608,6 +636,9 @@ class Cluster:
                 "batch_id": 0, "batch_size": 0, "shared_scan": 0,
                 "tenant": tenant,
             }
+            lk = _leaksan.track("session.active", sql[:60], owner=tok)
+            if lk is not None:
+                self._active_leaks[tok] = lk
         return tok
 
     def _update_active(self, tok: int, **fields) -> None:
@@ -619,6 +650,8 @@ class Cluster:
     def _unregister_active(self, tok: int) -> None:
         with self._active_lock:
             self.active_queries.pop(tok, None)
+            if self._active_leaks:
+                _leaksan.close(self._active_leaks.pop(tok, None))
 
     def active_query_snapshot(self) -> list[dict]:
         """Point-in-time view of in-flight statements, longest-running
@@ -1003,8 +1036,8 @@ class Session:
         # clears even when execution raises
         tok = c._register_active(sql, t0, tenant=tenant)
         seat = None
+        qid = None
         try:
-            qid = None
             if c.workload is not None or c.rm is not None:
                 with c._qid_lock:
                     c._query_seq += 1
@@ -1075,6 +1108,15 @@ class Session:
             if seat is not None:
                 seat.release()
             c._unregister_active(tok)
+            # statement-completion drain check: under the leak sanitizer
+            # every handle owned by this statement (its registry row,
+            # its compute-slot grant) must be closed by now — one bool
+            # test per hook when the sanitizer is off
+            _leaksan.assert_drained(owner=tok,
+                                    where="statement completion")
+            if qid is not None:
+                _leaksan.assert_drained(owner=qid,
+                                        where="statement completion")
 
     def _record_rejected(self, sql: str, t0: float, reason: str) -> None:
         """Statements rejected BEFORE execution (shed/admission
@@ -1114,11 +1156,23 @@ class Session:
         planned = None
         kind = "error"
         span = None
+        _ss = None
+        _ms = None
         # the batching dispatcher stamps batch_id/batch_size onto this
         # statement's registry row; sessions run one statement at a time
         self._active_tok = active_tok
         try:
             with c.tracer.trace("query", trace_id) as span:
+                # syncsan window covers plan+execute+fetch: copies,
+                # syncs, captures, builds and compiles attribute to THIS
+                # statement (conveyor workers resolve via the trace id)
+                _ss = _syncsan.begin_statement(
+                    sql, trace_id=span.trace_id, span=span)
+                # memsan window rides the same bounds: device-byte
+                # charges attribute to THIS statement, and its warm
+                # budget enforces on close just like syncsan's
+                _ms = _memsan.begin_statement(
+                    sql, trace_id=span.trace_id, span=span)
                 c._update_active(active_tok, stage="plan",
                                  trace_id=span.trace_id)
                 with act(span):
@@ -1150,7 +1204,14 @@ class Session:
                 rows = out.num_rows if isinstance(out, OracleTable) \
                     else 0
                 span.set(seconds=round(seconds, 6), rows=rows)
+                # close BEFORE the root span finishes so the syncsan_*
+                # attrs land on a live span; a budget breach raises here
+                # and surfaces as a statement error
+                _syncsan.end_statement(_ss)
+                _memsan.end_statement(_ms)
         except BaseException as e:
+            _syncsan.discard(_ss)
+            _memsan.discard(_ms)
             # statements that fail MID-EXECUTION still land in the
             # profile ring tagged error=1 plus a typed reason
             seconds = _time.monotonic() - t0
@@ -1382,8 +1443,30 @@ class Session:
         _, p, _aliases, plan_db, _an = planned
         db = self._statement_db(plan_db)
         t0 = _time.monotonic()
-        with tracing.span("analyze") as asp:
-            out = to_host(self._execute_select(p, db))
+        snap = None
+        msnap = None
+        _ss = None
+        _ms = None
+        try:
+            with tracing.span("analyze") as asp:
+                # nested syncsan/memsan windows (thread-local attribution
+                # only — the outer statement keeps the trace-id registry
+                # entry) so the rendered actuals carry THIS run's
+                # host-boundary and device-byte counters; measurement
+                # never enforces the warm budget, the outer statement
+                # window does
+                _ss = _syncsan.begin_statement("<analyze>")
+                _ms = _memsan.begin_statement("<analyze>")
+                out = to_host(self._execute_select(p, db))
+                snap = _syncsan.end_statement(_ss, enforce=False)
+                _ss = None
+                msnap = _memsan.end_statement(_ms, enforce=False)
+                _ms = None
+        finally:
+            if _ss is not None:
+                _syncsan.discard(_ss)
+            if _ms is not None:
+                _memsan.discard(_ms)
         seconds = _time.monotonic() - t0
         spans = []
         if asp.recording:
@@ -1393,6 +1476,10 @@ class Session:
         profile = build_profile(
             spans, kind="explain", query_class=classify_plan(p),
             seconds=seconds, rows=out.num_rows)
+        if snap is not None:
+            profile.syncsan = snap
+        if msnap is not None:
+            profile.memsan = msnap
         return format_plan_analyzed(p, profile)
 
     def _no_tx(self, what: str) -> None:

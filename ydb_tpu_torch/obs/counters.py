@@ -6,15 +6,15 @@ services create named subgroups, counters/gauges/histograms register by
 name, and encoders walk the tree. One process-global root; tests make
 private roots.
 
-The port's own copy of ``ydb_tpu/obs/counters.py``, with plain
-``threading`` locks in place of the thread sanitizer's tracked ones
-(ROADMAP.md queue A, sanitizers).
+The port's own copy of ``ydb_tpu/obs/counters.py``.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+
+from ydb_tpu_torch.analysis import sanitizer
 
 
 class Counter:
@@ -82,12 +82,16 @@ class Histogram:
 class CounterGroup:
     def __init__(self, labels: dict | None = None):
         self.labels = dict(labels or {})
-        # services register counters from conveyor workers + API
-        # threads concurrently
-        self._children: dict = {}
-        self._counters: dict = {}
-        self._histograms: dict = {}
-        self._lock = threading.Lock()
+        # registry dicts are sanitizer-tracked under
+        # YDB_TPU_TORCH_TSAN=1 (services register counters from conveyor
+        # workers + API threads concurrently)
+        self._children = sanitizer.share(
+            {}, f"counters.{id(self):x}.children")
+        self._counters = sanitizer.share(
+            {}, f"counters.{id(self):x}.counters")
+        self._histograms = sanitizer.share(
+            {}, f"counters.{id(self):x}.histograms")
+        self._lock = sanitizer.make_lock(f"counters.{id(self):x}.lock")
 
     def group(self, **labels) -> "CounterGroup":
         key = tuple(sorted(labels.items()))

@@ -2,15 +2,19 @@
 
 The port's own copy of ``StageTimer`` from ``ydb_tpu/obs/probes.py``
 (without its data-movement timeline events); the probe registry and
-memory statistics of that module wait for ROADMAP.md queue A item 7.
+memory statistics of that module wait for ROADMAP.md queue A item 7,
+and the registry's tracked lock and proxy come with them. A timer's lock
+and accumulator are sanitizer-tracked under YDB_TPU_TORCH_TSAN=1: the
+scan's producer and consumer threads charge one timer concurrently.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import threading
 import time
+
+from ydb_tpu_torch.analysis import sanitizer
 
 
 class StageTimer:
@@ -30,8 +34,9 @@ class StageTimer:
     STAGES = ("read", "merge", "stage", "compute")
 
     def __init__(self):
-        self._t: collections.defaultdict = collections.defaultdict(float)
-        self._lock = threading.Lock()
+        self._t = sanitizer.share(collections.defaultdict(float),
+                                  f"stagetimer.{id(self):x}")
+        self._lock = sanitizer.make_lock(f"stagetimer.{id(self):x}.lock")
 
     def add(self, name: str, seconds: float, **args) -> None:
         # ``args`` (morsel ids from the streaming pipeline) label the

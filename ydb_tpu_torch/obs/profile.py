@@ -67,12 +67,16 @@ class QueryProfile:
     batch_execute_seconds: float = 0.0
     stages: dict = dataclasses.field(default_factory=dict)
     pruning: dict = dataclasses.field(default_factory=dict)
-    #: host-boundary counters from the sync sanitizer (h2d/d2h
-    #: transfers, blocking syncs, compiles); {} until the port has one
-    #: (ROADMAP.md queue A, sanitizers)
+    #: host-boundary counters from the sync sanitizer
+    #: (analysis.syncsan, YDB_TPU_TORCH_SYNCSAN=1): h2d/d2h copies, the
+    #: seams' syncs and the CUDA debug mode's, graph captures, kernel
+    #: builds and compile_program calls this statement crossed; {} when
+    #: the sanitizer is off
     syncsan: dict = dataclasses.field(default_factory=dict)
-    #: device-byte counters from the footprint sanitizer (peak/live
-    #: bytes, charges, unbudgeted allocations); {} until the port has one
+    #: device-byte counters from the footprint sanitizer
+    #: (analysis.memsan, YDB_TPU_TORCH_MEMSAN=1): peak/live device
+    #: bytes, charge count and unbudgeted allocations this statement
+    #: made; {} when the sanitizer is off
     memsan: dict = dataclasses.field(default_factory=dict)
     device_seconds: float = 0.0
     host_seconds: float = 0.0
@@ -314,7 +318,8 @@ def format_plan_analyzed(plan, profile: QueryProfile) -> str:
         ss = profile.syncsan
         lines.append("syncsan: " + " ".join(
             f"{k}={ss.get(k, 0)}"
-            for k in ("h2d", "d2h", "syncs", "compiles")))
+            for k in ("h2d", "d2h", "syncs", "debug_syncs", "captures",
+                      "builds", "compiles")))
     if profile.memsan:
         ms = profile.memsan
         lines.append("memsan: " + " ".join(

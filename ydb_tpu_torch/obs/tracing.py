@@ -26,8 +26,7 @@ stats.STATS_FORCE).
 
 The port's own copy of ``ydb_tpu/obs/tracing.py``. Left out: the
 timeline ring that finished spans also feed in the reference (its
-``obs/timeline.py``), and the tracked lock of the thread sanitizer
-(ROADMAP.md queue A, tracing and sanitizers).
+``obs/timeline.py``; ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -38,6 +37,8 @@ import json
 import os
 import threading
 import time
+
+from ydb_tpu_torch.analysis import sanitizer
 
 
 _ids = itertools.count(1)
@@ -199,14 +200,15 @@ class Tracer:
 
     DQ stages and conveyor prefetch producers finish spans from worker
     threads while the session thread records its own — ``finished``
-    appends and ``spans_for`` lookups run under a lock, and the index makes per-query lookups O(spans in trace)
+    appends and ``spans_for`` lookups run under a sanitizer-tracked
+    lock, and the index makes per-query lookups O(spans in trace)
     instead of a scan over the whole ring."""
 
     def __init__(self, max_spans: int = 10000, clock=time.monotonic):
         self.max_spans = max_spans
         self.finished: list[Span] = []
         self._by_trace: dict[int, list[Span]] = {}
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock(f"tracer.{id(self):x}.lock")
         self._clock = clock
         self._next_tid = 1
 

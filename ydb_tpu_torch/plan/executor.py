@@ -43,6 +43,7 @@ import os
 
 import torch
 
+from ydb_tpu_torch.analysis import host_ok
 from ydb_tpu_torch.analysis.verify import check_program
 from ydb_tpu_torch.blocks.block import TableBlock, concat_blocks, device_aux
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
@@ -289,6 +290,9 @@ def _scan_node(plan: TableScan, db: Database, dev, sp) -> TableBlock:
     return ex.run_stream(_cached_stream(src, ex.read_cols, db, dev))
 
 
+@host_ok("scan staging boundary: host source arrays cross to the"
+         " device here by design (block cache / resident tier absorb"
+         " repeat crossings)")
 def _stage_fused_site(site, db: Database, fused=None) -> TableBlock:
     """One fused scan site's rows at its shape-class capacity, on the
     database's device. Given a CUDA ``fused`` plan they are copied
@@ -382,6 +386,8 @@ def _execute_plan_fused(plan: PlanNode, db: Database) -> TableBlock | None:
     return out
 
 
+@host_ok("compile-cache miss path: compiles the Transform once; the"
+         " (run, aux) pair is cached by (program, aliases, schema)")
 def _compiled_transform(plan: Transform, schema, db: Database, dev):
     """Compile a Transform program: its run function and its aux tables
     staged on ``dev``."""
@@ -438,6 +444,8 @@ def _execute_node(plan: PlanNode, db: Database, _memo: dict) -> TableBlock:
     raise NotImplementedError(plan)
 
 
+@host_ok("lazy result fetch: the ONE deliberate device->host boundary"
+         " per statement (under the session's 'fetch' span)")
 def to_host(block) -> OracleTable:
     """The statement's one deliberate device-to-host fetch."""
     if isinstance(block, OracleTable):

@@ -7,10 +7,10 @@ conveyor's worker threads (ydb/core/tx/conveyor/service/service.h:73),
 with an ICSController test seam to stall/step background work
 (ydb/core/tx/columnshard/hooks/abstract/abstract.h:49).
 
-The port's own copy of ``ydb_tpu/runtime/conveyor.py``, without the
-chaos, leak-sanitizer, thread-sanitizer, tracing and timeline hooks
-(ROADMAP.md queue A items 6-7). Background work is HOST work (blob IO, merges,
-metadata) — the accelerator never blocks on it. This module provides:
+The port's own copy of ``ydb_tpu/runtime/conveyor.py``, with its leak
+handles, tracked locks and span propagation; the chaos and timeline
+hooks come with ROADMAP.md queue A item 7. Background work is HOST work
+(blob IO, merges, metadata) — the accelerator never blocks on it. This module provides:
 
   * ``ResourceBroker`` — per-queue concurrency quotas under one total
   * ``Conveyor``       — worker threads draining a priority queue,
@@ -27,7 +27,9 @@ import os
 import threading
 import time
 
+from ydb_tpu_torch.analysis import leaksan, sanitizer
 from ydb_tpu_torch.chaos import deadline as statement_deadline
+from ydb_tpu_torch.obs import tracing
 
 #: queue-wait samples retained per queue between ``queue_stats``
 #: snapshots; beyond it the extra waits still count in the totals but
@@ -87,11 +89,17 @@ class ResourceBroker:
                  total: int | None = None):
         self.quotas = dict(quotas or {})
         self.total = total
-        self._running: dict[str, int] = {}
+        self._running = sanitizer.share(
+            {}, f"broker.{id(self):x}.running")
         self._all = 0
         self.rejected_deadline = 0  # guarded by _lock
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock(f"broker.{id(self):x}.lock")
+        # a Condition over the tracked lock: wait/notify release and
+        # re-acquire through it, so the held-set stays exact under TSAN
         self._freed = threading.Condition(self._lock)
+        # leak-sanitizer grant handles per queue (guarded by _freed);
+        # empty whenever the sanitizer is off
+        self._leaks: dict[str, list] = {}
 
     def acquire(self, queue: str,
                 stop: threading.Event | None = None,
@@ -117,6 +125,9 @@ class ResourceBroker:
                     self._freed.wait(timeout=0.1)
             self._running[queue] = self._running.get(queue, 0) + 1
             self._all += 1
+            lk = leaksan.track("broker.slot", queue)
+            if lk is not None:
+                self._leaks.setdefault(queue, []).append(lk)
 
     def _may_run(self, queue: str) -> bool:
         if self.total is not None and self._all >= self.total:
@@ -128,6 +139,10 @@ class ResourceBroker:
         with self._freed:
             self._running[queue] -= 1
             self._all -= 1
+            if self._leaks:
+                hs = self._leaks.get(queue)
+                if hs:
+                    hs.pop().close()
             self._freed.notify_all()
 
 
@@ -140,6 +155,9 @@ class TaskHandle:
     #: statement deadline captured at submit (None = unbounded); bounds
     #: the broker admission wait on the worker
     deadline: object = None
+    #: leak-sanitizer handle opened at submit, closed when done is set
+    #: (None whenever the sanitizer is off)
+    leak: object = None
 
     def wait(self, timeout: float | None = None):
         if not self.done.wait(timeout):
@@ -161,8 +179,11 @@ class Conveyor:
         self.broker = broker or ResourceBroker()
         self.controller = controller or ConveyorController()
         self._heap: list = []
+        # heapq mutates the list at the C level, bypassing any proxy:
+        # the push/pop sites carry explicit sanitizer notes instead
+        self._heap_tok = sanitizer.token(f"conveyor.{id(self):x}.heap")
         self._seq = itertools.count()
-        self._cv = threading.Condition()
+        self._cv = sanitizer.make_condition(f"conveyor.{id(self):x}.cv")
         # queue telemetry, all guarded by _cv: lifetime totals, the
         # depth high-water mark since the last queue_stats() snapshot,
         # and per-queue wait-time samples drained on that cadence
@@ -170,7 +191,8 @@ class Conveyor:
         self._completed = 0
         self._rejected = 0
         self._max_depth = 0
-        self._waits: dict[str, list] = {}
+        self._waits = sanitizer.share(
+            {}, f"conveyor.{id(self):x}.waits")
         self._stopping = False
         self._stop_event = threading.Event()
         self._active = 0
@@ -186,15 +208,20 @@ class Conveyor:
 
     def submit(self, queue: str, fn, *args, priority: int = 10,
                **kwargs) -> TaskHandle:
-        # the submitter's statement deadline follows the task onto the
-        # worker thread (scan prefetch producers observe its
-        # cancellation); a no-op when none is active
+        # the submitter's active trace span AND statement deadline follow
+        # the task onto the worker thread (scan prefetch producers record
+        # under the query's trace id and observe its cancellation);
+        # no-ops when neither is active
+        fn = tracing.wrap_current(fn)
         fn = statement_deadline.wrap_current(fn)
         h = TaskHandle(queue, threading.Event(),
-                       deadline=statement_deadline.current())
+                       deadline=statement_deadline.current(),
+                       leak=leaksan.track("conveyor.task", queue))
         with self._cv:
             if self._stopping:
+                leaksan.close(h.leak)
                 raise RuntimeError("conveyor is shut down")
+            sanitizer.note(self._heap_tok, "heappush")
             heapq.heappush(
                 self._heap,
                 (priority, next(self._seq), queue, fn, args, kwargs, h,
@@ -212,14 +239,17 @@ class Conveyor:
         each other: a parked producer whose consumer is itself waiting
         on a queued producer would starve — callers degrade to a
         synchronous path instead."""
-        fn = statement_deadline.wrap_current(fn)  # deadline follows
+        fn = tracing.wrap_current(fn)  # trace follows the producer
+        fn = statement_deadline.wrap_current(fn)  # so does the deadline
         with self._cv:
             if (self._stopping or self._heap
                     or self._active >= len(self._threads)):
                 self._rejected += 1
                 return None
             h = TaskHandle(queue, threading.Event(),
-                           deadline=statement_deadline.current())
+                           deadline=statement_deadline.current(),
+                           leak=leaksan.track("conveyor.task", queue))
+            sanitizer.note(self._heap_tok, "heappush")
             heapq.heappush(
                 self._heap,
                 (10, next(self._seq), queue, fn, args, kwargs, h,
@@ -270,6 +300,7 @@ class Conveyor:
                     self._cv.wait()
                 if self._stopping and not self._heap:
                     return
+                sanitizer.note(self._heap_tok, "heappop")
                 _, _, queue, fn, args, kwargs, h, t_sub = heapq.heappop(
                     self._heap)
                 self._active += 1
@@ -303,6 +334,7 @@ class Conveyor:
                 finally:
                     self.broker.release(queue)
             finally:
+                leaksan.close(h.leak)
                 h.done.set()
                 with self._cv:
                     self._active -= 1

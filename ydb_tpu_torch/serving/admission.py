@@ -23,9 +23,9 @@ tenant weight: per-tenant workload-service pools (concurrency), a
 and a resident-store byte entitlement (reported on ``sys_tenant_pools``
 and enforced at promotion time by the resident tier's global budget).
 
-The port's own copy of ``ydb_tpu/serving/admission.py``. Left out
-until their ROADMAP.md queue A items: the leak sanitizer's handle per
-seat and the ``serving.admit`` chaos site. The resident entitlement is
+The port's own copy of ``ydb_tpu/serving/admission.py``, with the leak
+sanitizer's handle per seat. Left out until ROADMAP.md queue A item 7:
+the ``serving.admit`` chaos site. The resident entitlement is
 a share of the resident tier's budget on the cluster's device.
 """
 
@@ -36,6 +36,7 @@ import os
 import threading
 import time
 
+from ydb_tpu_torch.analysis import leaksan
 from ydb_tpu_torch.kqp.rm import OverloadedError, WorkloadService
 from ydb_tpu_torch.serving.tenants import DEFAULT_TENANT, TenantRegistry
 
@@ -58,17 +59,19 @@ class Seat:
     """One admitted statement's hold on its tenant pool (release once;
     idempotent so error paths may race the happy path)."""
 
-    __slots__ = ("tenant", "_door", "_released")
+    __slots__ = ("tenant", "_door", "_leak", "_released")
 
-    def __init__(self, tenant: str, door: "FrontDoor"):
+    def __init__(self, tenant: str, door: "FrontDoor", leak=None):
         self.tenant = tenant
         self._door = door
+        self._leak = leak
         self._released = False
 
     def release(self) -> None:
         if self._released:
             return
         self._released = True
+        leaksan.close(self._leak)
         self._door._release(self.tenant)
 
 
@@ -198,7 +201,8 @@ class FrontDoor:
 
     def _seat(self, name: str, owner) -> Seat:
         self._count_locked(name, "admitted")
-        return Seat(name, self)
+        return Seat(name, self,
+                    leaksan.track("serving.seat", name, owner=owner))
 
     def _release(self, tenant: str) -> None:
         with self._lock:

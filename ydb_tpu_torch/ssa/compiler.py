@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import memsan, syncsan
 from ydb_tpu_torch.blocks.block import Column, TableBlock, device_aux
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
 from ydb_tpu_torch.ssa import kernels
@@ -155,6 +156,7 @@ def compile_program(
     # ydb_tpu_torch.ssa mid-init)
     from ydb_tpu_torch.analysis import verify as _verify
 
+    syncsan.count(compiles=1)
     out_nullable = _verify.check_program(program, schema).out_nullable
     ctx = _Lowering(schema, dicts, key_spaces, dict_aliases)
     # advisory distinct-group estimate (stats.cost NDV product): picks
@@ -342,7 +344,11 @@ def compile_program(
         blk = TableBlock(out_cols, length, out_schema)
         return kernels.compact(blk, mask)
 
-    return CompiledProgram(run=run, aux=ctx.aux, out_schema=out_schema,
+    # every execution of the program (a scan's partial and final runs,
+    # the walk, a fused plan) works under memsan.seam(): its tensors
+    # are the dispatch's working set, the reference's XLA temporaries
+    return CompiledProgram(run=memsan.computing(run), aux=ctx.aux,
+                           out_schema=out_schema,
                            in_schema=schema, group_layout=ctx.group_layout)
 
 
@@ -409,6 +415,9 @@ def _resolve_udf(expr: UdfCall, resolve_expr):
         valid = cols[0].validity
         for c in cols[1:]:
             valid = valid & c.validity
+        # a UDF is a host round trip by design: plans that call one are
+        # never captured (plan_fuse._program_has_udf declines them)
+        # ydb-lint: disable=L001
         host = [c.data.cpu().numpy() for c in cols]
         res = np.asarray(user_fn(*host), dtype=out_dtype)
         return Column(torch.as_tensor(res, device=valid.device), valid)

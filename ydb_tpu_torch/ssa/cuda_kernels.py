@@ -1,3 +1,7 @@
+# ydb-devmem: device-module — kernel launch wrappers: their outputs are
+# the calling kernel's results (the dispatch's working set); the one
+# persistent buffer, the per-device ticket slab, is bounded by
+# TICKET_STREAMS rows
 """Hand-written CUDA kernels for the hot group-by reduction.
 
 The counterpart of ``ydb_tpu/ssa/pallas_kernels.py``. Two entry points
@@ -53,6 +57,8 @@ from typing import NamedTuple
 
 import torch
 
+from ydb_tpu_torch.analysis import syncsan
+
 MAX_GROUPS = 2048
 MAX_FUSED_SLOTS = 128
 
@@ -91,6 +97,8 @@ _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 
 _lib = None
 _lock = threading.Lock()
+#: guards LAUNCHES and CAPTURED: statements on several threads launch
+_counts_lock = threading.Lock()
 #: (device index, dtype, slots capped at SLOT_CHUNK, num_groups) -> the
 #: number of clusters of that launch the device holds at once
 _max_clusters: dict = {}
@@ -120,25 +128,29 @@ def supported_fused(dtype, num_groups: int, n_slots: int) -> bool:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _counts_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _count(name: str) -> None:
     """One launch of kernel ``name`` on the current stream: counted now,
     or, under graph capture, at every replay of the graph."""
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[name] += 1
-    else:
-        LAUNCHES[name] += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _counts_lock:
+        if capturing:
+            CAPTURED[name] += 1
+        else:
+            LAUNCHES[name] += 1
 
 
 def count_replay(captured: dict) -> None:
     """One replay of a CUDA graph that holds ``captured`` kernel launches
     (the difference of ``CAPTURED`` across its capture): each of them
     launches again."""
-    for k, n in captured.items():
-        LAUNCHES[k] += n
+    with _counts_lock:
+        for k, n in captured.items():
+            LAUNCHES[k] += n
 
 
 # ---------------- build + bind ----------------
@@ -158,7 +170,9 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the kernel source into a shared library under
     ``build/ydb_tpu_torch_kernels`` (named by the source's hash, so an
-    edited source rebuilds) and return its path."""
+    edited source rebuilds) and return its path. A build event for the
+    sync sanitizer (a cached library counts too: it is loaded once)."""
+    syncsan.count(builds=1)
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libgrouped_sum_{tag}.so"
@@ -238,7 +252,9 @@ def _device_max_clusters(lib, device: torch.device, dtype, slots: int,
             raise RuntimeError(
                 f"grouped_sum: no cluster of {CLUSTER} CTAs fits on {device} "
                 f"({num_groups} groups, {slots} slots, {dtype})")
-        n = _max_clusters[key] = count.value
+        n = count.value
+        with _lock:
+            _max_clusters[key] = n
     return n
 
 

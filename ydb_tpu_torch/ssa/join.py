@@ -27,8 +27,12 @@ from __future__ import annotations
 import torch
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import memsan
 from ydb_tpu_torch.blocks.block import Column, TableBlock
 from ydb_tpu_torch.ssa import kernels
+
+# the join entry points run under memsan.seam(): their tensors are
+# the dispatch's working set, the reference's XLA temporaries
 
 
 def _key_i64(cols: list[Column]) -> torch.Tensor:
@@ -83,6 +87,7 @@ def _join_keys_live(block: TableBlock, keys: list[str]) -> tuple:
     return _key_i64(cols), live
 
 
+@memsan.computing
 def lookup_join(
     probe: TableBlock,
     build: TableBlock,
@@ -130,6 +135,7 @@ def lookup_join(
     return TableBlock(out_cols, probe.length, sch), found
 
 
+@memsan.computing
 def run_equi_join(
     probe: TableBlock,
     build: TableBlock,
@@ -177,6 +183,7 @@ def run_equi_join(
                         list(build_payload), cap, suffix, kind)
 
 
+@memsan.computing
 def expand_join(
     probe: TableBlock,
     build: TableBlock,

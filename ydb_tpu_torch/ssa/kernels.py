@@ -1,3 +1,6 @@
+# ydb-devmem: device-module — pure torch kernels: every body runs inside
+# a compiled program, a join or a captured plan (the dispatch's working
+# set, not resident buffers)
 """Device kernel primitives for SSA programs, in plain torch.
 
 The counterpart of ``ydb_tpu/ssa/kernels.py`` (plain ``jnp`` that XLA

@@ -77,8 +77,16 @@ cached plan keeps it for later statements.
 Env gates: ``YDB_TPU_TORCH_FUSE_PLAN=0`` disables fusion (``FUSE_FORCE``
 overrides it in-process); ``YDB_TPU_TORCH_FUSE_MAX_ROWS`` moves the
 cutoff. Not in the port yet: the ``ssa.compile``/``plan.fuse`` spans and
-the timeline and memsan charges (items 6 and 7 of ROADMAP.md queue A),
-and the mesh lowering that subclasses ``PlanLowering`` (item 8).
+the timeline (item 7 of ROADMAP.md queue A), and the mesh lowering that
+subclasses ``PlanLowering`` (item 13).
+
+Sanitizer hooks: a capture reports itself to the sync sanitizer
+(``syncsan.count(captures=1)``); memsan charges each dispatch's output
+clone (``dispatch``), the eager path's member stacking (``stack``) and a
+plan's graph state — the serial static inputs, a batch size's stacked
+static inputs and each graph's private pool (``graph_pool``, released
+when ``release``/``grow`` drop the graphs). ``run_all`` itself runs under
+``memsan.seam()``: its tensors are the dispatch's working set.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ from typing import Callable
 import torch
 
 from ydb_tpu_torch import dtypes
+from ydb_tpu_torch.analysis import host_ok, memsan, syncsan
 from ydb_tpu_torch.blocks.block import (
     DEFAULT_CAPACITY_QUANTUM,
     Column,
@@ -183,16 +192,19 @@ def fit_blocks(blocks, capacity: int) -> TableBlock:
     slice drops only padding."""
     b = merge_blocks_device(list(blocks))
     cols = {}
-    for n in b.schema.names:
-        c = b.columns[n]
-        d, v = c.data, c.validity
-        if d.shape[0] > capacity:
-            d, v = d[:capacity], v[:capacity]
-        elif d.shape[0] < capacity:
-            pad = capacity - d.shape[0]
-            d = torch.cat([d, d.new_zeros(pad)])
-            v = torch.cat([v, v.new_zeros(pad)])
-        cols[n] = Column(d, v)
+    # fitting belongs to the fused site's staging working set (its
+    # blocks were charged when staged)
+    with memsan.seam():
+        for n in b.schema.names:
+            c = b.columns[n]
+            d, v = c.data, c.validity
+            if d.shape[0] > capacity:
+                d, v = d[:capacity], v[:capacity]
+            elif d.shape[0] < capacity:
+                pad = capacity - d.shape[0]
+                d = torch.cat([d, d.new_zeros(pad)])
+                v = torch.cat([v, v.new_zeros(pad)])
+            cols[n] = Column(d, v)
     return TableBlock(cols, b.length, b.schema)
 
 
@@ -334,6 +346,8 @@ def plan_signature_cached(plan: PlanNode, db) -> PlanSignature | None:
                 _sig_cache.move_to_end(key)
                 return sig
             del _sig_cache[key]
+    # signature-cache miss: one classification walk, then memoized
+    # ydb-lint: disable=H004
     sig = plan_signature(plan, db)
     if sig is None:
         return None
@@ -462,13 +476,20 @@ class _Captured:
     member; views of one stacked block per site for ``run_stacked``), its
     static outputs, and the CUDA kernel launches it holds."""
 
-    def __init__(self, graph, inputs, out, totals, launches, pool_bytes):
+    def __init__(self, graph, inputs, out, totals, launches, pool_bytes,
+                 ticket=None):
         self.graph = graph
         self.inputs = inputs      # list[dict[key, TableBlock]]
         self.out = out            # TableBlock (stacked when batch > 1)
         self.totals = totals      # int64 (batch, slots) tensor or None
         self.launches = launches  # kernel -> launches per replay
         self.pool_bytes = pool_bytes
+        self.ticket = ticket      # memsan charge of the graph's state
+
+    def reset(self) -> None:
+        """Free the graph with its private pool (and its memsan charge)."""
+        self.graph.reset()
+        memsan.release(self.ticket)
 
 
 class FusedPlan:
@@ -500,6 +521,7 @@ class FusedPlan:
         else:
             self.lock, self._stream = threading.RLock(), None
         self._inputs: dict | None = None  # the serial graph's static inputs
+        self._inputs_ticket = None  # their memsan charge
         # "serial" (run) or a batch size (run_stacked) -> _Captured
         self._graphs: dict = {}
 
@@ -509,9 +531,14 @@ class FusedPlan:
         """The serial graph's static input block for site ``key`` (CUDA
         only), allocated at first use; ``stage_into`` fills it."""
         if self._inputs is None:
-            self._inputs = {s.key: _empty_block(s.in_schema, s.capacity,
-                                                self.device)
-                            for s in self.sites}
+            with memsan.seam():
+                self._inputs = {s.key: _empty_block(s.in_schema,
+                                                    s.capacity, self.device)
+                                for s in self.sites}
+            if memsan.armed():
+                self._inputs_ticket = memsan.charge(
+                    memsan.nbytes_of(self._inputs), "graph_pool",
+                    owner="input_block")
         return self._inputs[key]
 
     def stage_into(self, key: str, arrays: dict, validity: dict | None,
@@ -576,17 +603,28 @@ class FusedPlan:
         as in the reference). ``slice_member`` takes member i's block."""
         batch = len(inputs_list)
         if not self._cuda:
-            return self._run_eager(_members(_stack_members(inputs_list),
-                                            batch), stacked=True)
+            with memsan.seam():
+                stacked = _stack_members(inputs_list)
+            # the stack copy is transient: its bytes release once the
+            # batched result exists
+            ticket = memsan.charge(
+                memsan.nbytes_of(stacked), "stack",
+                owner="run_stacked") if memsan.armed() else None
+            try:
+                return self._run_eager(_members(stacked, batch),
+                                       stacked=True)
+            finally:
+                memsan.release(ticket)
         with self.lock:
             cap = self._graphs.get(batch)
             if cap is None:
                 # one stacked static block per site; each member runs on
-                # its slice
-                static = _members(_stack_members([
-                    {s.key: _empty_block(s.in_schema, s.capacity,
-                                         self.device)
-                     for s in self.sites}] * batch), batch)
+                # its slice (charged with the graph's pool at capture)
+                with memsan.seam():
+                    static = _members(_stack_members([
+                        {s.key: _empty_block(s.in_schema, s.capacity,
+                                             self.device)
+                         for s in self.sites}] * batch), batch)
             else:
                 static = cap.inputs
             self._load(static, inputs_list)
@@ -598,14 +636,22 @@ class FusedPlan:
     def _run_eager(self, inputs_list, stacked: bool):
         t0 = time.perf_counter()
         outs, totals = [], []
-        for inputs in inputs_list:
-            out, tot = self._run_all(inputs, self.aux)
-            outs.append(out)
-            totals.append([int(t) for t in tot])
+        with memsan.seam():
+            for inputs in inputs_list:
+                out, tot = self._run_all(inputs, self.aux)
+                outs.append(out)
+                totals.append([int(t) for t in tot])
+            out = _stack_blocks(outs) if stacked else outs[0]
         if self.first_trace_seconds is None:
+            # the eager path runs only off CUDA, where nothing captures:
+            # capture_lock's writers never meet this one
+            # ydb-lint: disable=C001
             self.first_trace_seconds = time.perf_counter() - t0
         worst = [max(ts) for ts in zip(*totals)]
-        return (_stack_blocks(outs) if stacked else outs[0]), worst
+        if memsan.armed():
+            memsan.charge(memsan.nbytes_of(out), "dispatch",
+                          owner="run_stacked" if stacked else "run")
+        return out, worst
 
     def _load(self, static: list, inputs_list: list) -> None:
         """Copy each member's blocks into its static input set, on the
@@ -628,6 +674,9 @@ class FusedPlan:
         tot = (torch.stack(totals) if totals[0] is not None else None)
         return out, tot
 
+    @host_ok("graph capture: reached only on a plan's first run (or a"
+             " batch size's, or after grow); the captured graph is cached"
+             " on the plan and every later run replays it")
     def _capture(self, static: list, stacked: bool = False) -> _Captured:
         """Warm up, then capture ``run_all`` over ``static`` (one replay
         then serves every member) on the fusion stream, holding
@@ -649,10 +698,11 @@ class FusedPlan:
 
         s = self._stream
         t0 = time.perf_counter()
+        syncsan.count(captures=1)
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            with torch.cuda.stream(s):
+            with torch.cuda.stream(s), memsan.seam():
                 self._run_members(static, stacked)
         finally:
             torch.cuda.set_sync_debug_mode(prev)
@@ -667,7 +717,8 @@ class FusedPlan:
         gc.disable()
         try:
             with torch.cuda.graph(graph, stream=s,
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), \
+                    memsan.seam():
                 out, totals = self._run_members(static, stacked)
         finally:
             if gc_was_on:
@@ -678,8 +729,16 @@ class FusedPlan:
         self.capture_seconds = (self.capture_seconds or 0.0) + t2 - t1
         self.first_trace_seconds = (
             (self.first_trace_seconds or 0.0) + t2 - t0)
-        return _Captured(graph, static, out, totals, launches,
-                         _pool_bytes(graph))
+        pool = _pool_bytes(graph)
+        ticket = None
+        if memsan.armed():
+            # the graph's private pool, plus a batch size's own stacked
+            # static inputs (the serial ones are charged at first use)
+            own = memsan.nbytes_of(static) if stacked else 0
+            ticket = memsan.charge((pool or 0) + own, "graph_pool",
+                                   owner="capture")
+        return _Captured(graph, static, out, totals, launches, pool,
+                         ticket)
 
     def _replay(self, cap: _Captured, stacked: bool):
         from ydb_tpu_torch.ssa import cuda_kernels
@@ -694,7 +753,12 @@ class FusedPlan:
         # overwritten)
         cur.wait_stream(self._stream)
         out = _clone_block(cap.out)
-        # the dispatch's one host sync (none without an expand join)
+        if memsan.armed():
+            memsan.charge(memsan.nbytes_of(out), "dispatch",
+                          owner="run_stacked" if stacked else "run")
+        # the dispatch's one host sync (none without an expand join):
+        # the expand totals decide the grow protocol
+        # ydb-lint: disable=H001
         host = cap.totals.cpu() if cap.totals is not None else None
         self._stream.wait_stream(cur)
         if host is None:
@@ -715,9 +779,11 @@ class FusedPlan:
         inputs (the plan left its cache); a later run captures anew."""
         with self.lock:
             for cap in self._graphs.values():
-                cap.graph.reset()
+                cap.reset()
             self._graphs.clear()
             self._inputs = None
+            memsan.release(self._inputs_ticket)
+            self._inputs_ticket = None
 
     def overflowed(self, totals: list[int]) -> list[int]:
         """Expand-join indexes whose match total exceeded capacity."""
@@ -735,7 +801,7 @@ class FusedPlan:
         self.grows += 1
         with self.lock:
             for cap in self._graphs.values():
-                cap.graph.reset()
+                cap.reset()
             self._graphs.clear()
 
 
@@ -946,6 +1012,8 @@ class PlanLowering:
         return emit, sch, cap
 
 
+@host_ok("fused-plan compile: reached only on a compile-cache miss;"
+         " the built FusedPlan is cached by plan fingerprint")
 def _build(sig: PlanSignature, db) -> FusedPlan:
     lo = PlanLowering(sig, db)
     root, out_schema, _ = lo.lower(sig.plan)

@@ -1,7 +1,8 @@
 """StatisticsAggregator: per-shard sketches folded into table stats.
 
-The port's own copy of ``ydb_tpu/stats/aggregator.py``. Its probe and
-thread-sanitizer hooks wait for their ROADMAP.md queue A items. Mirror
+The port's own copy of ``ydb_tpu/stats/aggregator.py``, with its
+tracked lock and shared maps; its probe hooks come with ROADMAP.md queue
+A item 7. Mirror
 of the reference's statistics aggregator tablet
 (ydb/core/statistics/aggregator/aggregator_impl.h; SURVEY.md §2.7): a
 service that periodically — and on demand after commit/compaction
@@ -25,6 +26,7 @@ from __future__ import annotations
 import json
 import threading
 
+from ydb_tpu_torch.analysis import sanitizer
 from ydb_tpu_torch.stats.cost import ColumnStats, TableStats
 from ydb_tpu_torch.stats.sketch import ColumnSketch
 
@@ -41,14 +43,15 @@ class StatisticsAggregator:
     """
 
     def __init__(self, store=None, tablet_id: str = "statsaggr"):
-        self._lock = threading.Lock()
+        name = f"statsaggr.{id(self):x}"
+        self._lock = sanitizer.make_lock(f"{name}.lock")
         # (shard_id, portion_id) -> {column: ColumnSketch}
-        self._portions: dict = {}
-        self._tables: dict = {}
+        self._portions = sanitizer.share({}, f"{name}.portions")
+        self._tables = sanitizer.share({}, f"{name}.tables")
         # table -> visible-portion-set fingerprint of the last refresh:
         # a steady-state maintenance tick (nothing committed/compacted)
         # must not re-merge every sketch nor rewrite the WAL snapshot
-        self._table_keys: dict = {}
+        self._table_keys = sanitizer.share({}, f"{name}.table_keys")
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self.executor = None
