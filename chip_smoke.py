@@ -200,6 +200,41 @@ Phases, in order; any failure exits non-zero before the final line:
    disarmed (phase 10's cluster) and armed medians; the disarmed one
    within ``SANITIZE_NOISE`` of phase 10's warm q33. Under
    ``SANITIZE_BUDGET_S`` (90 s).
+12. Chaos and the timeline (``ydb_tpu_torch/chaos``, ``obs/timeline.py``,
+   ``obs/probes.py``, ``obs/kernelbench.py``), over phase 9's lineitem and
+   hits shards (booted from their directory) and a Cluster booted from
+   phase 10's store. Timeline, forced on into a ring of
+   ``TIMELINE_EVENTS``: a cold and a warm Q1 (resident tier filled
+   between) and a warm q33 from the shards, profiled; one
+   ``{"timeline_query": ...}`` line each with events, drops, busy
+   seconds and fraction per stage, ``movement|compute``, and the ring's
+   per-stage sums, which must equal ``StageTimer``'s within
+   ``TIMELINE_REL``; a warm fused q33 through the Cluster adds its
+   ``plan.dispatch`` interval; the Chrome trace goes to
+   ``build/phase12_trace.json``. Chaos, seed ``CHAOS_SEED``:
+   ``blob.get_range`` ``io_error`` at p=0.05 on cold Q1 and Q6 (resident
+   tier off, block cache cleared), each bit-identical to the unfaulted
+   scan, the retries counted; ``resident.lookup`` faults on q33 and q36
+   on both group-by lowerings, bit-identical, the kernels' launches
+   counted over these scans (both must launch; read before the check
+   that then holds every call of the same four scans against the plain
+   versions), one of them under memsan (0 unbudgeted); ``conveyor.task``
+   ``worker_death`` (the pool respawns, ``wait_idle`` drains to depth
+   0); then, under leaksan from the Cluster's boot to its stop:
+   ``fuse.trace`` on fused q33 (the walk answers, then one capture),
+   ``session.admit`` ``overload`` (``OverloadedError``),
+   ``noisy_neighbor.json`` over pgwire behind a gold and a bronze tenant
+   (every answer equal to phase 10's, the shed counted), and the deadline
+   scenario: TPC-H Q1/Q3/Q6 twice with ``blob.get_range`` faults at
+   p=0.05 and the fifth statement past its deadline
+   (``StatementCancelled``, ``error_reason == "cancelled"``), the rest
+   equal to phase 10's; no leak handle, no promotion flight left. One
+   ``{"timeline": ...}``, one ``{"chaos": ...}`` and one
+   ``{"kernelbench": ...}`` line: the group-by at 1<<20 rows and 1,745
+   groups on both lowerings against the CPU oracle, and the chaos and
+   profiling overheads on warm Q1 at SF-1 within the reference's
+   budgets (``KB_CHAOS_BUDGET``, ``KB_PROFILE_BUDGET``). Under
+   ``CHAOS_BUDGET_S`` (120 s).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -2059,12 +2094,14 @@ def sharded_tpch(tp, root, dev, n_shards=2):
 
 
 def storage_phase(dev, ck, tp, cb, sql_sf: float = STORAGE_SQL_SF,
-                  answers=None) -> dict:
+                  answers=None, keep_root: bool = False) -> dict:
     """Phase 9: the ColumnShard storage path (see the module docstring).
     ``tp`` holds phase 3's lineitem, ``cb`` its hits, ``answers`` phase
     3's numpy Q1 and Q6 (computed here when None). Returns every
     measurement; ``launches`` are the CUDA kernels' launches of the
-    counted ``GROUP BY URL`` shard scans."""
+    counted ``GROUP BY URL`` shard scans. With ``keep_root`` the
+    directory of the lineitem and hits shards stays for phase 12
+    (``out["root"]``, the caller removes it)."""
     import shutil
     import tempfile
 
@@ -2229,8 +2266,12 @@ def storage_phase(dev, ck, tp, cb, sql_sf: float = STORAGE_SQL_SF,
         with toggles(resident=False):
             out["sql"] = sharded_sql(sql_sf, os.path.join(tmp, "tpch"),
                                      dev, out)
+        shutil.rmtree(os.path.join(tmp, "tpch"), ignore_errors=True)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep_root:
+            out["root"] = tmp
+        else:
+            shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"storage phase: {out['seconds']:.1f} s; kernel launches of the "
         f"counted GROUP BY URL shard scans {out['launches']}")
@@ -3494,6 +3535,537 @@ def sanitize_phase(dev, ck, root, tp, want, disarmed) -> dict:
     return out
 
 
+# ---------------- phase 12: chaos and the timeline ----------------
+
+#: phase 12's time limit, seconds of script time
+CHAOS_BUDGET_S = 120.0
+#: seed of every phase-12 scenario
+CHAOS_SEED = 42
+#: the phase's timeline ring (a cold SF-10 Q1 records a few thousand
+#: events; none may drop)
+TIMELINE_EVENTS = 1 << 18
+#: the timeline's per-stage event sums against StageTimer's stage
+#: seconds (the reference's acceptance tolerance)
+TIMELINE_REL = 0.10
+#: kernelbench on the card: the group-by at the main path's shape, the
+#: overhead A/Bs on warm Q1 at SF-1 (interleaved, min of the iterations)
+KB_ROWS = 1 << 20
+KB_GROUPS = 1745
+KB_AGGS = 4
+KB_SF = 1.0
+KB_ITERS = 9
+KB_BLOCK_ROWS = 1 << 18
+#: the reference's budgets (ydb_tpu/obs/kernelbench.py): chaos armed
+#: within 1% of disarmed (its real-size call), profiling on within the
+#: 2% default-on budget its docstring names (the timeline ring then
+#: within max(3%, that) + 2 ms of profiling on)
+KB_CHAOS_BUDGET = 0.01
+KB_PROFILE_BUDGET = 0.02
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class chaos_armed:
+    """A seeded scenario armed for a block (``CHAOS_FORCE`` pinned
+    open), disarmed after; ``counters`` holds the snapshot taken at the
+    end of the block."""
+
+    def __init__(self, sites, seed=CHAOS_SEED, scenario=None):
+        from ydb_tpu_torch import chaos
+
+        self.scenario = scenario or chaos.Scenario(seed=seed, sites=sites)
+        self.counters: dict = {}
+
+    def __enter__(self):
+        from ydb_tpu_torch import chaos
+
+        self.saved = chaos.CHAOS_FORCE
+        chaos.CHAOS_FORCE = True
+        chaos.install(self.scenario)
+        return self
+
+    def __exit__(self, *exc):
+        from ydb_tpu_torch import chaos
+
+        self.counters = chaos.counters_snapshot()
+        chaos.clear()
+        chaos.CHAOS_FORCE = self.saved
+        return False
+
+
+def timeline_scans(dev, li, hits, answers) -> list:
+    """Phase 12, timeline: a cold and a warm Q1 from the lineitem shard
+    and a warm q33 from the hits shard, each profiled with the timeline
+    forced on (the caller's ring); per query the events, drops, busy and
+    fraction per stage, ``movement|compute``, and the timeline's stage
+    sums against ``StageTimer``'s (within ``TIMELINE_REL``). Returns the
+    rows and the cold Q1 result."""
+    from ydb_tpu_torch.obs import profile as profile_mod
+    from ydb_tpu_torch.obs import timeline, tracing
+    from ydb_tpu_torch.obs.probes import StageTimer
+    from ydb_tpu_torch.workload import clickbench, tpch
+
+    rows, results = [], {}
+    # one tracer for the three queries: trace ids are unique per tracer
+    tracer = tracing.Tracer()
+
+    def traced(label, shard, prog):
+        ring = timeline.RING
+        rec0, drop0 = ring.recorded, ring.dropped
+        t0 = time.perf_counter()
+        with profile_mod.profiled(label, tracer=tracer) as h:
+            res = shard.scan(prog)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        p = h.profile
+        evs = [e for e in ring.events() if e.trace_id == p.trace_id]
+        sums = {c: sum(e.end - e.start for e in evs if e.cat == c)
+                for c in StageTimer.STAGES}
+        occ = p.stage_occupancy
+        row = {"query": label, "seconds": seconds,
+               "events": len(evs), "events_recorded": ring.recorded - rec0,
+               "events_dropped": ring.dropped - drop0,
+               "wall_s": occ.get("wall_seconds"),
+               "busy_s": occ.get("busy"), "fraction": occ.get("fraction"),
+               "movement_compute": occ.get("overlap", {}).get(
+                   "movement|compute"),
+               "stage_s": dict(p.stages), "event_stage_s": sums,
+               "resident_rows": shard.last_scan_resident["rows"]}
+        emit({"timeline_query": row})
+        assert row["events_dropped"] == 0, row
+        for c, total in p.stages.items():
+            if total > 0:
+                assert abs(sums[c] - total) <= TIMELINE_REL * total, \
+                    (label, c, sums[c], total)
+        assert row["movement_compute"] is not None, row
+        rows.append(row)
+        return res
+
+    q1 = tpch.q1_program()
+    li.resident.clear()
+    li.block_cache.clear()
+    results["q1"] = traced("q1_cold", li, q1)
+    check_q1(results["q1"], answers["q1"])
+    if li.resident.enabled():
+        rows[-1]["resident_fill_after_s"] = fill_resident(li)
+    identical(traced("q1_warm", li, q1), results["q1"], "q1 warm")
+    if hits.resident.enabled():
+        fill_resident(hits)
+    q33 = clickbench.q33_program()
+    hits.scan(q33)  # compile outside the recorded window
+    res = traced("q33_warm", hits, q33)
+    got = list(zip(hits.dicts["URL"].decode(res.cols["URL"][0]),
+                   (int(x) for x in res.cols["c"][0])))
+    assert got == answers["q33"], got[:3]
+    return rows, results["q1"]
+
+
+def blob_faults(dev, li, want1) -> dict:
+    """Phase 12, chaos: ``blob.get_range`` ``io_error`` at p=0.05 on cold
+    Q1 and Q6 lineitem scans (resident tier off, block cache cleared):
+    each result bit-identical to the unfaulted one, the retries
+    counted."""
+    from ydb_tpu_torch.workload import tpch
+
+    out = {}
+    want = {"q1": want1, "q6": li.scan(tpch.q6_program())}
+    for name, prog in (("q1", tpch.q1_program()),
+                       ("q6", tpch.q6_program())):
+        with toggles(resident=False):
+            li.block_cache.clear()
+            t0 = time.perf_counter()
+            with chaos_armed({"blob.get_range": {"kind": "io_error",
+                                                 "p": 0.05}}) as arm:
+                res = li.scan(prog)
+                _sync(dev)
+            seconds = time.perf_counter() - t0
+        identical(res, want[name], f"{name} under blob.get_range faults")
+        site = arm.counters["sites"]["blob.get_range"]
+        out[name] = {"seconds": seconds, "hits": site["hits"],
+                     "fired": site["fired"],
+                     "retries": arm.counters.get("retries", {}),
+                     "chunks_read": li.last_scan_pruning["chunks_read"]}
+    assert sum(r["fired"] for r in out.values()) > 0, out
+    assert sum(sum(r["retries"].values()) for r in out.values()) \
+        == sum(r["fired"] for r in out.values()), out
+    return out
+
+
+def resident_faults(dev, ck, hits) -> dict:
+    """Phase 12, chaos: ``resident.lookup`` faults on q33 and q36 from the
+    hits shard, on the fused and the per-aggregate lowering: each result
+    bit-identical to the unfaulted one, the kernels' launches counted
+    over the faulted scans (both must launch), one faulted scan under
+    memsan (no unbudgeted allocation); then every kernel call of the same
+    four faulted scans held against its plain version (not counted)."""
+    from ydb_tpu_torch.analysis import memsan
+    from ydb_tpu_torch.ssa import kernels
+    from ydb_tpu_torch.workload import clickbench
+
+    progs = {"q33": clickbench.q33_program(),
+             "q36": clickbench.q36_program()}
+    cases = [(n, low) for n in progs for low in ("fused", "peragg")]
+    sites = {"resident.lookup": {"kind": "io_error", "p": 0.5}}
+
+    def scan(name, lowering):
+        kernels.FUSED_FORCE = lowering == "fused"
+        try:
+            return hits.scan(progs[name])
+        finally:
+            kernels.FUSED_FORCE = None
+
+    want = {c: scan(*c) for c in cases}
+    cuda = dev.type == "cuda"
+    if cuda:
+        ck.reset_launches()
+    out = {"scans": []}
+    with chaos_armed(sites) as arm:
+        for c in cases:
+            t0 = time.perf_counter()
+            res = scan(*c)
+            _sync(dev)
+            identical(res, want[c], f"{c} under resident.lookup faults")
+            out["scans"].append({
+                "query": c[0], "lowering": c[1],
+                "seconds": time.perf_counter() - t0,
+                "resident_portions": hits.last_scan_resident["portions"]})
+    if cuda:
+        # the phase's main path launches, read before the check's own
+        out["launches"] = dict(ck.LAUNCHES)
+        assert all(v > 0 for v in out["launches"].values()), \
+            out["launches"]
+    out["lookup"] = arm.counters["sites"]["resident.lookup"]
+    out["fallbacks"] = arm.counters["fallbacks"]["resident.lookup"]
+    assert out["fallbacks"] == out["lookup"]["fired"] > 0, out
+    hits.resident.drain(timeout=300)
+    with chaos_armed(sites), memsan.activate():
+        st = memsan.begin_statement("q33_resident_faults")
+        res = scan("q33", "fused")
+        out["memsan"] = memsan.end_statement(st, enforce=False)
+    identical(res, want[("q33", "fused")], "q33 under memsan")
+    assert out["memsan"]["unbudgeted"] == 0, out["memsan"]
+    hits.resident.drain(timeout=300)
+    if cuda:
+        out["kernel_check"] = {}
+        with chaos_armed(sites):
+            for c in cases:
+                got = checked_kernel_calls(ck, lambda c=c: scan(*c))
+                k = "grouped_sum_multi" if c[1] == "fused" else "grouped_sum"
+                assert got[k]["calls"] > 0, (c, got)
+                out["kernel_check"]["_".join(c)] = got
+        hits.resident.drain(timeout=300)
+    return out
+
+
+def worker_death() -> dict:
+    """Phase 12, chaos: ``conveyor.task`` ``worker_death`` (budget 1) on a
+    conveyor of two workers: the task errors typed, the pool respawns to
+    two live workers, later tasks run, and ``wait_idle`` drains to depth
+    0 (the shared scan conveyor too)."""
+    from ydb_tpu_torch import chaos
+    from ydb_tpu_torch.runtime.conveyor import Conveyor, shared_conveyor
+
+    conv = Conveyor(workers=2)
+    try:
+        with chaos_armed({"conveyor.task": {"kind": "worker_death",
+                                            "budget": 1}}) as arm:
+            h = conv.submit("bg", lambda: 1)
+            try:
+                h.wait(timeout=30.0)
+                raise AssertionError("the injected worker death did not "
+                                     "fail its task")
+            except chaos.ChaosError as e:
+                error = str(e)
+        t0 = time.perf_counter()
+        while sum(t.is_alive() for t in conv._threads) < 2:
+            assert time.perf_counter() - t0 < 10.0, "the pool did not heal"
+            time.sleep(0.01)
+        hs = [conv.submit("bg", lambda i=i: i * i) for i in range(8)]
+        assert [h.wait(timeout=30.0) for h in hs] == [i * i for i in
+                                                       range(8)]
+        conv.wait_idle(timeout=30.0)
+        depth = conv.queue_stats()["depth"]
+    finally:
+        conv.shutdown()
+    shared_conveyor().wait_idle(timeout=60.0)
+    shared = shared_conveyor().queue_stats()
+    assert depth == shared["depth"] == shared["active"] == 0
+    return {"error": error, "fired": arm.counters["sites"][
+        "conveyor.task"]["fired"], "workers_alive": 2, "depth": depth}
+
+
+def _rows_of(res):
+    cols = [(f.name, 701 if f.type.is_floating else 0)
+            for f in res.schema.fields]
+    return wire_rows(res), cols
+
+
+def cluster_faults(dev, cluster, srv, want, timeline_ring) -> dict:
+    """Phase 12, chaos through the serving plane of a Cluster booted from
+    phase 10's store: ``fuse.trace`` on fused q33, then one warm fused q33
+    with the timeline on (its ``plan.dispatch`` interval lands in
+    ``timeline_ring``); ``session.admit`` ``overload``; the noisy
+    neighbor scenario over pgwire behind two tenants; the deadline
+    scenario over Q1/Q3/Q6."""
+    from ydb_tpu_torch import chaos, serving
+    from ydb_tpu_torch.chaos.deadline import StatementCancelled
+    from ydb_tpu_torch.kqp.rm import OverloadedError
+    from ydb_tpu_torch.obs import timeline
+    from ydb_tpu_torch.workload import clickbench
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    out = {}
+    s = cluster.session()
+    q33 = clickbench.QUERIES["q33"]
+    # fuse.trace: the walk answers, then one clean capture follows
+    with chaos_armed({"fuse.trace": {"kind": "io_error",
+                                     "budget": 1}}) as arm, \
+            routed() as seen:
+        walked = s.execute(q33)
+        fused = s.execute(q33)
+    assert seen == ["fused"], seen  # the first statement was walked
+    plans = _fused_in(cluster)
+    got, cols = _rows_of(walked)
+    same_wire(got, want["q33"], cols, "q33 walked after fuse.trace")
+    same_wire(_rows_of(fused)[0], want["q33"], cols, "q33 fused")
+    out["fuse_trace"] = {
+        "fired": arm.counters["sites"]["fuse.trace"]["fired"],
+        "fallbacks": arm.counters["fallbacks"]["fuse.trace"],
+        "captures": sum(p.captures for p in plans) if dev.type == "cuda"
+        else None}
+    if dev.type == "cuda":
+        assert out["fuse_trace"]["captures"] == 1, out["fuse_trace"]
+    # the timeline's dispatch events: one warm fused statement
+    prev = timeline.TIMELINE_FORCE
+    timeline.TIMELINE_FORCE = True
+    try:
+        with routed() as seen:
+            same_wire(_rows_of(s.execute(q33))[0], want["q33"], cols,
+                      "q33 warm fused, timeline on")
+        assert seen == ["fused"], seen
+        p = s.last_profile
+        out["fused_timeline"] = {
+            "dispatch_events": sum(
+                1 for e in timeline_ring.events()
+                if e.cat == "dispatch" and e.trace_id == p.trace_id),
+            "occupancy": p.stage_occupancy}
+    finally:
+        timeline.TIMELINE_FORCE = prev
+    if dev.type == "cuda":
+        assert out["fused_timeline"]["dispatch_events"] == 1, out
+    # session.admit overload: a typed shed
+    with chaos_armed({"session.admit": {"kind": "overload",
+                                        "budget": 1}}):
+        try:
+            s.execute(q33)
+            raise AssertionError("session.admit overload did not shed")
+        except OverloadedError as e:
+            out["session_admit"] = {"error": type(e).__name__,
+                                    "message": str(e),
+                                    "error_reason":
+                                    s.last_profile.error_reason}
+    assert out["session_admit"]["error_reason"] == "overloaded"
+    # noisy neighbor: two tenants over pgwire under the shipped scenario
+    reg = serving.TenantRegistry()
+    reg.register("gold", weight=3.0, max_inflight=4, queue_size=8)
+    reg.register("bronze", weight=1.0, max_inflight=1, queue_size=0)
+    fd = serving.install(cluster, reg)
+    path = os.path.join(HERE, "ydb_tpu_torch", "chaos",
+                        "noisy_neighbor.json")
+    q36 = clickbench.QUERIES["q36"]
+    try:
+        with chaos_armed(None, scenario=chaos.Scenario.from_file(path)) \
+                as arm:
+            gold, _ = concurrent_queries(srv.port, [[q33, q36]] * 4,
+                                         startup={"tenant": "gold"})
+            bronze, _ = concurrent_queries(srv.port, [[q36]] * 6,
+                                           startup={"tenant": "bronze"})
+        answered = shed = 0
+        for st in gold + bronze:
+            if st[4]:
+                assert all("bronze" in e for e in st[4]), st[4]
+                shed += 1
+                continue
+            name = "q33" if st[1] == q33 else "q36"
+            same_wire(st[2], want[name], st[3], f"{name} noisy neighbor",
+                      rtol=1e-12)
+            answered += 1
+        snap = fd.snapshot()
+    finally:
+        cluster.front_door = None
+        cluster.workload = None
+    assert all(not st[4] for st in gold), "a gold statement was shed"
+    out["noisy_neighbor"] = {
+        "answered": answered, "shed": shed,
+        "gold_admitted": snap["gold"]["admitted"],
+        "bronze_shed": snap["bronze"]["shed"],
+        "sites": {k: v["fired"] for k, v in arm.counters["sites"].items()}}
+    # the deadline scenario: blob faults at p=0.05 on cold reads, a
+    # fifth of the statements past their deadline
+    queries = {k: TPCH[k] for k in ("q1", "q3", "q6")}
+    cancelled = stmt = 0
+    with chaos_armed({"blob.get_range": {"kind": "io_error",
+                                         "p": 0.05}}) as arm:
+        for _ in range(2):
+            for name, sql in queries.items():
+                stmt += 1
+                cluster.scan_block_cache.clear()
+                if stmt % 5 == 0:
+                    try:
+                        s.execute(sql, timeout=0.0)
+                        raise AssertionError(f"{name} past its deadline "
+                                             f"answered")
+                    except StatementCancelled:
+                        cancelled += 1
+                    assert s.last_profile.error_reason == "cancelled"
+                else:
+                    got, cols = _rows_of(s.execute(sql, timeout=120.0))
+                    same_wire(got, want[name], cols, f"{name} deadline "
+                              f"scenario", rtol=1e-12)
+    out["deadline"] = {"statements": stmt, "cancelled": cancelled,
+                       "blob_hits": arm.counters["sites"][
+                           "blob.get_range"]["hits"],
+                       "blob_fired": arm.counters["sites"][
+                           "blob.get_range"]["fired"],
+                       "retries": arm.counters.get("retries", {})}
+    assert cancelled == 1, out["deadline"]
+    return out
+
+
+def kernelbench_on_card(dev, ck) -> dict:
+    """Phase 12, kernelbench: the group-by at 1<<20 rows and 1,745 groups
+    on both lowerings against the CPU oracle (each kernel must launch),
+    and the chaos and profiling overheads on warm Q1 at SF-1 within the
+    reference's budgets."""
+    from ydb_tpu_torch.obs import kernelbench
+    from ydb_tpu_torch.workload import tpch
+
+    out = {}
+    before = dict(ck.LAUNCHES) if dev.type == "cuda" else {}
+    out["group_by"] = kernelbench.bench_group_by(
+        KB_ROWS, KB_GROUPS, KB_AGGS, 3, device=dev)
+    if dev.type == "cuda":
+        out["group_by"]["launches"] = {k: ck.LAUNCHES[k] - before[k]
+                                       for k in before}
+        assert all(v > 0 for v in out["group_by"]["launches"].values()), \
+            out["group_by"]
+    data = tpch.TpchData(sf=KB_SF, seed=5)
+    out["chaos_overhead"] = kernelbench.bench_chaos_overhead(
+        KB_SF, KB_ITERS, KB_BLOCK_ROWS, assert_within=KB_CHAOS_BUDGET,
+        device=dev, data=data)
+    out["profile_overhead"] = kernelbench.bench_profile_overhead(
+        KB_SF, KB_ITERS, KB_BLOCK_ROWS, assert_within=KB_PROFILE_BUDGET,
+        device=dev, data=data)
+    return out
+
+
+def chaos_phase(dev, ck, storage_root, serving_root, answers, want) -> dict:
+    """Phase 12 (see the module docstring). ``storage_root`` holds phase
+    9's lineitem and hits shards, ``serving_root`` phase 10's store,
+    ``answers`` the numpy Q1 and the q33 answer, ``want`` phase 10's
+    unsanitized wire rows of Q1, Q3, Q6, q33 and q36."""
+    from ydb_tpu_torch.analysis import leaksan
+    from ydb_tpu_torch.engine.blobs import DirBlobStore
+    from ydb_tpu_torch.engine.shard import ColumnShard
+    from ydb_tpu_torch.obs import timeline
+    from ydb_tpu_torch.runtime.conveyor import shared_conveyor
+    from ydb_tpu_torch.workload import clickbench, tpch
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    store = DirBlobStore(storage_root)
+    li = ColumnShard.boot("li", tpch.LINEITEM_SCHEMA, store,
+                          config=storage_config(), device=dev)
+    hits = ColumnShard.boot("hits", clickbench.HITS_SCHEMA, store,
+                            config=storage_config(), device=dev)
+    out["boot_s"] = time.perf_counter() - t_phase
+    ring = timeline.TimelineRing(TIMELINE_EVENTS, "phase12")
+    saved = (timeline.RING, timeline.TIMELINE_FORCE)
+    timeline.RING = ring
+    try:
+        timeline.TIMELINE_FORCE = True
+        try:
+            out["timeline"], q1_result = timeline_scans(dev, li, hits,
+                                                        answers)
+        finally:
+            timeline.TIMELINE_FORCE = saved[1]
+        out["blob"] = blob_faults(dev, li, q1_result)
+        out["resident"] = resident_faults(dev, ck, hits)
+        del li, hits
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["conveyor"] = worker_death()
+        with leaksan.activate():
+            cluster, srv, out["cluster_boot_s"] = serving_boot(
+                serving_root, dev)
+            try:
+                out["cluster"] = cluster_faults(dev, cluster, srv, want,
+                                                ring)
+                shared_conveyor().wait_idle(timeout=60.0)
+                inflight = 0
+                for t in cluster.tables.values():
+                    for sh in t.shards:
+                        sh.resident.drain(timeout=300)
+                        inflight += sh.resident.snapshot()["inflight"]
+                out["leaks_before_stop"] = leaksan.counts()
+            finally:
+                srv.stop()
+                cluster.stop()  # raises LeakError when a handle outlived it
+            out["leaks_at_stop"] = leaksan.counts()
+            out["promotion_flights"] = inflight
+        assert out["leaks_before_stop"] == out["leaks_at_stop"] == {}, out
+        assert inflight == 0
+        trace = timeline.export_chrome_trace(ring=ring)
+        path = os.path.join(HERE, "build", "phase12_trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(trace, f)
+        cats = collections.Counter(e["cat"] for e in trace["traceEvents"]
+                                   if e["ph"] == "X")
+        out["trace"] = {"path": os.path.relpath(path, HERE),
+                        "events": sum(cats.values()),
+                        "categories": dict(sorted(cats.items())),
+                        "dropped": ring.dropped}
+        need = {"read", "stage", "compute", "blob.read", "decode", "span",
+                "conveyor.wait", "conveyor.run"}
+        if dev.type == "cuda":
+            need.add("dispatch")
+        assert need <= set(cats), (need, cats)
+        assert ring.dropped == 0, ring.dropped
+    finally:
+        timeline.RING, timeline.TIMELINE_FORCE = saved
+    out["kernelbench"] = kernelbench_on_card(dev, ck)
+    out["seconds"] = time.perf_counter() - t_phase
+    res = out["resident"]
+    emit({"timeline": {
+        "queries": out["timeline"], "trace": out["trace"],
+        "fused_dispatch": out["cluster"]["fused_timeline"]}})
+    emit({"chaos": {
+        "seed": CHAOS_SEED, "blob_get_range": out["blob"],
+        "resident_lookup": {k: res[k] for k in (
+            "scans", "lookup", "fallbacks", "memsan") if k in res},
+        "launches": res.get("launches"),
+        "fuse_trace": out["cluster"]["fuse_trace"],
+        "worker_death": out["conveyor"],
+        "session_admit": out["cluster"]["session_admit"],
+        "noisy_neighbor": out["cluster"]["noisy_neighbor"],
+        "deadline": out["cluster"]["deadline"],
+        "leaks_at_stop": out["leaks_at_stop"],
+        "promotion_flights": out["promotion_flights"]}})
+    emit({"kernelbench": out["kernelbench"]})
+    log(f"chaos phase: {out['seconds']:.1f} s; faulted Q1/Q6/q33/q36 "
+        f"bit-identical to unfaulted; no leak, no stranded promotion; "
+        f"chaos overhead "
+        f"{out['kernelbench']['chaos_overhead']['overhead_pct']}%, "
+        f"profiling "
+        f"{out['kernelbench']['profile_overhead']['overhead_pct']}%")
+    assert out["seconds"] < CHAOS_BUDGET_S, out["seconds"]
+    return out
+
+
 def tpch_days(s: str) -> int:
     return int(np.datetime64(s, "D").astype(np.int32))
 
@@ -3761,24 +4333,34 @@ def main(argv=None) -> int:
     tpcds_rows = tpcds_phase(dev, ck, args.tpcds_sf)
 
     # ---- phase 9: the ColumnShard storage path ----
-    storage = storage_phase(dev, ck, tp, cb, args.storage_sql_sf,
-                            (want1, want6))
-    del cb
-    torch.cuda.empty_cache()
-
-    # ---- phase 10: the session and serving plane ----
-    serving = serving_phase(dev, ck, args.serving_sf, keep_root=True)
-
-    # ---- phase 11: the sanitizers ----
     import shutil
 
+    storage = storage_phase(dev, ck, tp, cb, args.storage_sql_sf,
+                            (want1, want6), keep_root=True)
+    chaos_answers = {"q1": want1,
+                     "q33": clickbench.q33_q36_answers(cb)["q33"]}
+    del cb
+    torch.cuda.empty_cache()
+    roots = [storage.pop("root")]
     try:
-        sanitize = sanitize_phase(
-            dev, ck, os.path.join(serving["root"], "main"), tp,
-            serving.pop("sanitize_want"), serving.pop("sanitize_disarmed"))
+        # ---- phase 10: the session and serving plane ----
+        serving = serving_phase(dev, ck, args.serving_sf, keep_root=True)
+        roots.append(serving.pop("root"))
+        serving_root = os.path.join(roots[-1], "main")
+        want = serving.pop("sanitize_want")
+
+        # ---- phase 11: the sanitizers ----
+        sanitize = sanitize_phase(dev, ck, serving_root, tp, want,
+                                  serving.pop("sanitize_disarmed"))
+        del tp
+        torch.cuda.empty_cache()
+
+        # ---- phase 12: chaos and the timeline ----
+        chaos = chaos_phase(dev, ck, roots[0], serving_root, chaos_answers,
+                            want)
     finally:
-        shutil.rmtree(serving.pop("root"), ignore_errors=True)
-    del tp
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     for row in kernel_rows:
         row["sql_launches"] = sql_launches[row["name"]]
@@ -3787,6 +4369,12 @@ def main(argv=None) -> int:
         row["storage_launches"] = storage["launches"][row["name"]]
         row["serving_launches"] = serving["launches"][row["name"]]
         row["sanitize_launches"] = sanitize["launches"][row["name"]]
+        row["chaos_launches"] = chaos["resident"]["launches"][row["name"]]
+        row["chaos_checked_calls"] = sum(
+            q[row["name"]]["calls"]
+            for q in chaos["resident"]["kernel_check"].values())
+        row["kernelbench_launches"] = \
+            chaos["kernelbench"]["group_by"]["launches"][row["name"]]
         row["sanitize_checked_calls"] = sum(
             q[row["name"]]["calls"]
             for q in sanitize["kernel_check"].values())
@@ -3796,7 +4384,8 @@ def main(argv=None) -> int:
         row["max_abs_err"] = max(row["max_abs_err"], *(
             q[row["name"]]["max_abs_err"]
             for q in (*serving["kernel_check"].values(),
-                      *sanitize["kernel_check"].values())))
+                      *sanitize["kernel_check"].values(),
+                      *chaos["resident"]["kernel_check"].values())))
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
@@ -3806,7 +4395,7 @@ def main(argv=None) -> int:
                   sql_golden_float_exceptions=exceptions,
                   sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion,
                   tpcds=tpcds_rows, storage=storage, serving=serving,
-                  sanitize=sanitize)
+                  sanitize=sanitize, chaos=chaos)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

@@ -1,0 +1,62 @@
+"""The port's kernel bench (``ydb_tpu_torch/obs/kernelbench.py``) on the
+CPU: the tier-1 wiring of the reference's (``tests/test_staging.py``):
+``--smoke --json --device cpu`` runs every bench but ``--shuffle`` at
+tiny sizes, each of them checked (group-by against the CPU oracle,
+rtol 1e-9; the A/B benches bit-identical across their two sides; the
+overhead benches within the smoke's 50% no-catastrophe bound, zero
+timeline events while it is off, zero leaked handles, zero unbudgeted
+allocations). Besides: the group-by bench past 512 groups on both
+lowerings (the path of the two CUDA kernels, here their plain
+versions), and ``--shuffle`` raising the typed error that names the
+mesh's ROADMAP item.
+
+The overhead verdicts compare host times of two sides run in turns. The
+benches run on one intra-op thread here: with the default pool (one
+thread per core) in each of several test processes sharing the cores,
+the two sides would time thread-pool contention instead of their own
+work."""
+
+import json
+
+import pytest
+import torch
+
+from ydb_tpu_torch.obs import kernelbench
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_smoke_json_on_the_cpu(capsys):
+    assert kernelbench.main(["--smoke", "--json", "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["device"] == "cpu"
+    assert report["group_by"]["oracle_check"] == "ok"
+    for name in ("pruning", "resident", "streaming", "fusion",
+                 "batching"):
+        assert report[name]["identical"] is True, name
+    for name in ("profile_overhead", "chaos_overhead", "leaksan_overhead",
+                 "admission_overhead", "memsan_overhead"):
+        assert report[name]["within_budget"] is True, name
+    assert report["profile_overhead"]["timeline_disabled_events"] == 0
+    assert report["memsan_overhead"]["warm_unbudgeted"] == 0
+    assert report["leaksan_overhead"]["drained"] is True
+    assert report["pruning"]["chunks_skipped"] > 0
+    assert "shuffle" not in report
+
+
+def test_group_by_past_512_groups_both_lowerings():
+    out = kernelbench.bench_group_by(20_000, 1_745, 2, 1, device="cpu")
+    assert out["oracle_check"] == "ok"
+    assert out["fused_rows_per_sec"] > 0 and out["peragg_rows_per_sec"] > 0
+
+
+def test_shuffle_names_the_mesh_item():
+    with pytest.raises(kernelbench.MeshNotPorted, match="item 13"):
+        kernelbench.main(["--shuffle", "--device", "cpu"])
+    assert issubclass(kernelbench.MeshNotPorted, NotImplementedError)

@@ -332,15 +332,18 @@ def test_expired_deadline_cancels_dq_graph(golden_port, monkeypatch):
     """A source task past the statement deadline stops pumping and aborts
     the graph at its abort target (wired by ``WireTask``, as a multi-node
     executer wires it): the executor raises ``StatementCancelled``.
-    Without an abort target (the local graph as built) the graph stalls
-    and the executor reports it incomplete, as the reference's does."""
+    Without an abort target (the local graph as built) the graph stalls;
+    the executor reports that stall as the cancellation it is, also a
+    ``StatementCancelled`` (the reference reports it incomplete with a
+    ``RuntimeError``, ROADMAP.md queue C)."""
     from ydb_tpu_torch.dq import compute
 
     db = golden_port[1]
     plan = _plan_port(TPCH["q3"], golden_port).plan
     expired = deadline.Deadline(seconds=0.0)
     with deadline.activate(expired):
-        with pytest.raises(RuntimeError, match="did not complete"):
+        with pytest.raises(deadline.StatementCancelled,
+                           match="DQ stage graph: deadline exceeded"):
             execute_plan(plan, db)
     real = compute.build_stage_graph
 

@@ -179,6 +179,15 @@ class TableBlock:
             [self.columns[k].validity[:n] for k in names])))
 
 
+def block_nbytes(blk: TableBlock) -> int:
+    """Device bytes of a block's columns, data and validity at full
+    capacity, from tensor metadata (the timeline's movement counters;
+    no device read)."""
+    return sum(c.data.numel() * c.data.element_size()
+               + c.validity.numel() * c.validity.element_size()
+               for c in blk.columns.values())
+
+
 def _fetch(tensors: list) -> list:
     """Host numpy copies of ``tensors``. On the CPU they are views; on a
     device every tensor's bytes are packed into one device buffer (widest

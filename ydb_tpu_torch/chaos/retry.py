@@ -2,15 +2,15 @@
 
 The port's own copy of ``ydb_tpu/chaos/retry.py``. One policy object
 serves every transient-failure surface (blob reads in
-engine/portion.py) so backoff shape and counters are uniform. Retries respect the statement :class:`~ydb_tpu_torch.chaos.deadline.
-Deadline` active on the calling thread: no retry ever sleeps past the
-statement's budget, and an expired deadline stops retrying immediately
-(the last error propagates; the cancellation machinery turns it into a
-typed failure at the statement boundary).
+engine/portion.py) so backoff shape and counters are uniform. Retries
+respect the statement :class:`~ydb_tpu_torch.chaos.deadline.Deadline`
+active on the calling thread: no retry ever sleeps past the statement's
+budget, and an expired deadline stops retrying immediately (the last
+error propagates; the cancellation machinery turns it into a typed
+failure at the statement boundary).
 
-Retry counters live here (``note_retry``); the reference's
-``blob.retry`` probe and span annotation come with the port's tracing
-(ROADMAP.md queue A item 7).
+Counters + the ``blob.retry`` probe + span annotation live here (see
+``note_retry``), so every retry loop surfaces identically.
 """
 
 from __future__ import annotations
@@ -75,9 +75,19 @@ class RetryPolicy:
 
 
 def note_retry(site: str, attempt: int, error: BaseException) -> None:
-    """Count a retry (``retry_counters``)."""
+    """Count a retry and surface it: ``blob.retry`` probe + a ``retries``
+    attribute on the active span (EXPLAIN ANALYZE shows absorbed
+    retries)."""
     with _counters_lock:
         _RETRIES[site] = _RETRIES.get(site, 0) + 1
+    from ydb_tpu_torch.obs import probes, tracing
+    pr = probes.probe("blob.retry")
+    if pr:
+        pr.fire(site=site, attempt=attempt,
+                error=type(error).__name__)
+    sp = tracing.current_span()
+    if sp is not None:
+        sp.set(retries=sp.attrs.get("retries", 0) + 1)
 
 
 def retry_counters() -> dict[str, int]:

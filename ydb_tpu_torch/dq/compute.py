@@ -14,12 +14,16 @@ channels host-side as a numpy payload, as in the reference: the spiller,
 checkpoints and a later wire transport stay byte-compatible with it.
 Where the reference jits the per-block program and the fused
 merge-plus-final, the port calls them eagerly on the stage's device.
+Under an active trace each task is a ``dq.task`` span carrying its
+dispatch seconds (host clock around the eager calls).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
@@ -264,6 +268,11 @@ class ComputeActor(Actor):
         self.spiller = spiller or Spiller()
         self.abort_target: ActorId | None = None
         self._aborted = False
+        # profile span for this task (opened at StartTask when a query
+        # trace is active on the executer thread; finished with the
+        # task's accumulated device-compute seconds)
+        self._span = None
+        self._compute_s = 0.0
 
         self._in_finished: set[int] = set()
         # agg stages accumulate partial states THROUGH the spiller
@@ -323,6 +332,13 @@ class ComputeActor(Actor):
         from ydb_tpu_torch.runtime.interconnect import Undelivered
 
         if isinstance(message, StartTask):
+            from ydb_tpu_torch.obs import tracing
+
+            parent = tracing.current_span()
+            if parent is not None and self._span is None:
+                self._span = parent.child("dq.task").set(
+                    stage=self.task.stage, task=self.task.task_id,
+                    thread=threading.get_ident())
             self._start_source()
         elif isinstance(message, _PumpSource):
             if not self._aborted:
@@ -506,15 +522,25 @@ class ComputeActor(Actor):
         self._ingest(blk)
         self.send(self.self_id, _PumpSource())
 
+    def _timed(self, fn, *args):
+        """Charge a stage-program dispatch to the task's profile span
+        (pass-through when no trace is active)."""
+        if self._span is None:
+            return fn(*args)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self._compute_s += time.perf_counter() - t0
+        return out
+
     def _ingest(self, block: TableBlock):
         spec = self.task.stage_spec
         if spec.final_program is not None:
             # aggregate stage: per-block partial, accumulated via the
             # spiller (blocks beyond the quota go to blobs)
-            self._acc_ids.append(self.spiller.put(
-                block_to_payload(self.compiled.run_block(block))))
+            self._acc_ids.append(self.spiller.put(block_to_payload(
+                self._timed(self.compiled.run_block, block))))
         else:
-            self._emit(self.compiled.run_block(block))
+            self._emit(self._timed(self.compiled.run_block, block))
 
     def _finish_input(self):
         spec = self.task.stage_spec
@@ -525,7 +551,7 @@ class ComputeActor(Actor):
             build = _assemble(self._join_acc[1],
                               self.compiled.in_schemas[1], dev)
             self._join_acc = {0: [], 1: []}
-            self._emit(self.compiled.run_join(probe, build))
+            self._emit(self._timed(self.compiled.run_join, probe, build))
             self._finish_output()
             return
         if spec.final_program is not None:
@@ -536,12 +562,12 @@ class ComputeActor(Actor):
                                      self.compiled.device)
                     for sid in self._acc_ids
                 ]
-                self._emit(self.compiled.run_final(blocks))
+                self._emit(self._timed(self.compiled.run_final, blocks))
             else:
                 # empty input still finalizes (COUNT over nothing etc.)
                 empty = _empty_block(self.compiled.mid_schema,
                                      self.compiled.device)
-                self._emit(self.compiled.run_final([empty]))
+                self._emit(self._timed(self.compiled.run_final, [empty]))
             self._acc_ids = []
         self._finish_output()
 
@@ -588,6 +614,10 @@ class ComputeActor(Actor):
 
     def _finish_output(self):
         self._done = True
+        if self._span is not None:
+            self._span.set(compute_seconds=round(self._compute_s, 6))
+            self._span.finish()
+            self._span = None
         if isinstance(self.task.stage_spec.output, ResultOutput):
             self.send(self.result_target, ResultData(None, True))
             return

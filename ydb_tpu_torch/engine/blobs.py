@@ -1,9 +1,11 @@
 """Blob storage behind a narrow Put/Get/Delete interface.
 
 The port's own copy of ``BlobStore``, ``MemBlobStore`` and
-``DirBlobStore`` from ``ydb_tpu/engine/blobs.py`` (without its chaos
-fault hooks). The DQ spiller parks channel and partial-aggregate
-payloads here, and checkpoint storage keeps task state here. Backends:
+``DirBlobStore`` from ``ydb_tpu/engine/blobs.py``, with its chaos sites
+``blob.put`` / ``blob.get`` / ``blob.get_range`` (``_chaos_io``). Column
+shards keep their portions here, the DQ spiller parks channel and
+partial-aggregate payloads here, and checkpoint storage keeps task state
+here. Backends:
 
   * ``MemBlobStore``  — in-process store (the spiller's default)
   * ``DirBlobStore``  — local filesystem directory (one file per blob),
@@ -16,6 +18,28 @@ import bisect
 import os
 import tempfile
 import threading
+
+from ydb_tpu_torch import chaos
+
+
+def _chaos_io(op: str, blob_id: str,
+              data: bytes | None = None) -> bytes | None:
+    """Chaos injection on the real IO surface (sites ``blob.put`` /
+    ``blob.get`` / ``blob.get_range``): latency spikes sleep here,
+    ``io_error`` raises :class:`chaos.InjectedIOError` (an OSError, so
+    the retry plane treats it as the real thing), ``torn`` returns a
+    short read whose decode failure exercises the re-fetch path.
+    Disarmed cost: one bool check inside ``chaos.hit``."""
+    f = chaos.hit(op, blob=blob_id)
+    if f is None:
+        return data
+    f.sleep()
+    if f.kind == "io_error":
+        raise chaos.InjectedIOError(
+            f"injected {op} failure on {blob_id!r}")
+    if f.kind == "torn" and data is not None:
+        return data[:len(data) // 2]
+    return data
 
 
 class BlobStore:
@@ -59,16 +83,18 @@ class MemBlobStore(BlobStore):
             return len(self._data[blob_id])
 
     def put(self, blob_id, data):
+        _chaos_io("blob.put", blob_id)
         with self._lock:
             if blob_id not in self._data:
                 bisect.insort(self._keys, blob_id)
             self._data[blob_id] = bytes(data)
 
     def get(self, blob_id):
-        return self._data[blob_id]
+        return _chaos_io("blob.get", blob_id, self._data[blob_id])
 
     def get_range(self, blob_id, off, length):
-        return self._data[blob_id][off:off + length]
+        return _chaos_io("blob.get_range", blob_id,
+                         self._data[blob_id][off:off + length])
 
     def delete(self, blob_id):
         with self._lock:
@@ -104,6 +130,7 @@ class DirBlobStore(BlobStore):
         return os.path.join(self.root, quote(blob_id, safe=""))
 
     def put(self, blob_id, data):
+        _chaos_io("blob.put", blob_id)
         # temp + rename: a crash mid-write never leaves a torn blob
         fd, tmp = tempfile.mkstemp(dir=self.root, prefix=".tmp.")
         try:
@@ -119,12 +146,12 @@ class DirBlobStore(BlobStore):
 
     def get(self, blob_id):
         with open(self._path(blob_id), "rb") as f:
-            return f.read()
+            return _chaos_io("blob.get", blob_id, f.read())
 
     def get_range(self, blob_id, off, length):
         with open(self._path(blob_id), "rb") as f:
             f.seek(off)
-            return f.read(length)
+            return _chaos_io("blob.get_range", blob_id, f.read(length))
 
     def delete(self, blob_id):
         try:

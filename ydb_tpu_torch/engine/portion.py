@@ -1,7 +1,9 @@
 """Portions: immutable columnar data units with PK stats.
 
-The port's own copy of ``ydb_tpu/engine/portion.py`` (without the
-data-movement timeline events, ROADMAP.md queue A item 7).
+The port's own copy of ``ydb_tpu/engine/portion.py``, with its
+data-movement timeline hooks: a ``blob.read`` event and a ``decode``
+interval per chunk, and the ``blob_read_bytes`` / ``decoded_bytes``
+counters (``obs/timeline.py``).
 
 Reference: a ColumnShard's data is a set of *portions* — per-column blobs
 plus metadata (row count, PK min/max, snapshot) grouped into granules
@@ -25,6 +27,7 @@ import dataclasses
 import io
 import json
 import struct
+import time
 import zipfile
 
 import numpy as np
@@ -282,18 +285,39 @@ class PortionChunkReader:
         copies via ``np.load`` (the legacy serialized-path decode,
         kept bit-for-bit as the ``YDB_TPU_TORCH_STREAM_PIPELINE=0``
         reference)."""
+        from ydb_tpu_torch.obs import timeline
+
         unpack = _unpack_chunk_view if zero_copy else _unpack_chunk
 
         # fetch + decode retried as ONE unit: a torn/short read fails in
-        # the decode, and only re-fetching can heal it
+        # the decode, and only re-fetching can heal it. A legacy blob was
+        # fetched whole at open: a retry re-fetches it (the reference
+        # decodes the same torn bytes again, so its retry cannot heal)
+        retry = False
+
         def _fetch_decode():
+            nonlocal retry
             if self._legacy is not None:
+                if retry:
+                    self._legacy = self.store.get(self.blob_id)
+                retry = True
                 data = self._legacy
             else:
                 c = self.chunks[i]
-                data = self.store.get_range(
-                    self.blob_id, self._base + c["off"], c["len"])
-            return unpack(data)
+                with timeline.event("blob.read", "blob.read",
+                                    timeline.current_trace_id(),
+                                    bytes=c["len"]):
+                    data = self.store.get_range(
+                        self.blob_id, self._base + c["off"], c["len"])
+            timeline.add_bytes("blob_read_bytes", len(data))
+            t0 = time.perf_counter()
+            cols, valid = unpack(data)
+            decoded = sum(a.nbytes for a in cols.values()) + sum(
+                v.nbytes for v in valid.values())
+            timeline.add_bytes("decoded_bytes", decoded)
+            timeline.record("decode", "decode", t0, time.perf_counter(),
+                            timeline.current_trace_id(), bytes=decoded)
+            return cols, valid
 
         return READ_RETRY.call(_fetch_decode, site="blob.get_range",
                                retry_on=_TRANSIENT_READ)

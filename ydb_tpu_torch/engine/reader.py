@@ -5,8 +5,9 @@ device side: blocks are built on the scan's side CUDA stream through
 pinned slabs (``engine/staging.py``, one ``Stager`` per stream) and
 handed to the consumer with an event (``staging.accept``); every source
 takes the ``device`` its blocks go to (the shard's device when None).
-The tracing, timeline and chaos hooks come with ROADMAP.md queue A
-item 7.
+The staging producer runs under a ``scan.producer`` span, and each
+staged block adds its padded device bytes to the timeline's
+``staged_bytes`` counter.
 
 The out-of-core read path of the ColumnShard — the analog of the
 reference's scan fetching script + K-way PK merge
@@ -43,7 +44,7 @@ from typing import Iterator
 import numpy as np
 
 from ydb_tpu_torch import native
-from ydb_tpu_torch.blocks.block import TableBlock
+from ydb_tpu_torch.blocks.block import TableBlock, block_nbytes
 from ydb_tpu_torch.chaos import deadline as statement_deadline
 from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.engine import staging
@@ -601,10 +602,16 @@ def stream_blocks(payloads, names, sch, cap: int,
     stager = staging.Stager(device)
 
     def build(cols, valid):
+        from ydb_tpu_torch.obs import timeline
+
         ctx = (timer.stage("stage") if timer is not None
                else contextlib.nullcontext())
         with ctx:
-            return stager.from_numpy(cols, valid, sch, cap)
+            blk = stager.from_numpy(cols, valid, sch, cap)
+        # staged/H2D movement: padded device bytes this block shipped
+        # (tensor metadata, never a device read)
+        timeline.add_bytes("staged_bytes", block_nbytes(blk))
+        return blk
 
     pieces = rechunk(payloads, names, cap)
 
@@ -660,14 +667,22 @@ def pump_blocks(blocks, prefetch: bool = True,
         return False
 
     def produce():
+        # the conveyor re-activated the consumer's span on this worker
+        # thread; the producer span proves (and tests assert) the
+        # trace id crossed the pool
+        from ydb_tpu_torch.obs import tracing
+
         emitted = 0
         try:
-            for blk in blocks:
-                if stop.is_set():
-                    return
-                emitted += 1
-                if not put(("blk", blk)):
-                    return
+            with tracing.span("scan.producer") as psp:
+                psp.set(thread=threading.get_ident())
+                for blk in blocks:
+                    if stop.is_set():
+                        return
+                    emitted += 1
+                    if not put(("blk", blk)):
+                        return
+                psp.set(blocks=emitted)
             put(("end", emitted))
         except BaseException as e:  # noqa: BLE001 - relayed to consumer
             put(("err", e))

@@ -6,8 +6,12 @@ only once the copy is done; blocks are assembled on a scan's side stream
 with ``narrow``/``torch.cat`` (``engine/staging.py``) and reuse the
 resident tensors as-is in the aligned case. The auto budget is on when
 the shard's device is CUDA (the reference asks
-``jax.default_backend()``). The mesh device slices come with ROADMAP.md
-queue A item 8; the chaos, probe and timeline hooks with item 7.
+``jax.default_backend()``). The ``resident.lookup`` chaos site serves a
+fault as a miss (the scan degrades mid-stream to the staged host path);
+promotions and evictions fire the ``resident.promote`` /
+``resident.evict`` probes; blocks served from the tier and blocks staged
+beside them add to the timeline's ``resident_bytes`` / ``staged_bytes``.
+The mesh device slices come with ROADMAP.md queue A item 13.
 
 The third level of the storage hierarchy (blob store -> host blocks ->
 device-resident columns) and the engine-side answer to ROADMAP item 1:
@@ -54,12 +58,18 @@ import os
 import numpy as np
 import torch
 
+from ydb_tpu_torch import chaos
 from ydb_tpu_torch.analysis import leaksan, memsan, sanitizer
-from ydb_tpu_torch.blocks.block import Column, TableBlock
+from ydb_tpu_torch.blocks.block import Column, TableBlock, block_nbytes
 from ydb_tpu_torch.chaos import deadline as statement_deadline
 from ydb_tpu_torch import device as device_mod
 from ydb_tpu_torch.device import capture_lock
 from ydb_tpu_torch.engine import staging
+from ydb_tpu_torch.obs import timeline
+from ydb_tpu_torch.obs.probes import probe
+
+_P_PROMOTE = probe("resident.promote")
+_P_EVICT = probe("resident.evict")
 
 #: test/bench override: True/False forces the gate, None = environment
 RESIDENT_FORCE: "bool | None" = None
@@ -182,6 +192,13 @@ class ResidentStore:
         through to the host path and ``record_miss`` counts the heat)."""
         if not names:
             return None
+        if chaos.hit("resident.lookup", portion=portion_id) is not None:
+            # injected device-memory fault: served as a miss, so the
+            # scan degrades mid-stream to the staged host path
+            chaos.note_fallback("resident.lookup")
+            with self._lock:
+                self.misses += 1
+            return None
         with self._lock:
             self._tick += 1
             out = {}
@@ -295,7 +312,11 @@ class ResidentStore:
                     info.setdefault("tickets", []).append(
                         memsan.charge(added, "resident",
                                       owner=portion_id))
-            self._evict_to_budget_locked(budget, keep=portion_id)
+            evicted = self._evict_to_budget_locked(budget,
+                                                   keep=portion_id)
+        if _P_PROMOTE and added:
+            _P_PROMOTE.fire(store=self.name, portion=portion_id,
+                            nbytes=added, evicted=evicted)
         return added > 0
 
     def _evict_to_budget_locked(self, budget: int, keep=None) -> int:
@@ -316,6 +337,9 @@ class ResidentStore:
             self._drop_locked(victim)
             self.evictions += 1
             evicted += 1
+        if evicted and _P_EVICT:
+            _P_EVICT.fire(store=self.name, portions=evicted,
+                          nbytes=self._nbytes)
         return evicted
 
     def _drop_locked(self, portion_id: int) -> None:
@@ -504,6 +528,11 @@ def scan_items(source, clusters, names, device=None):
                 if ent is not None:
                     source.resident_hits += 1
                     source.resident_rows += m.num_rows
+                    # bytes served straight from device memory — the
+                    # movement the resident tier SAVED the staged
+                    # pipeline
+                    timeline.add_bytes("resident_bytes", sum(
+                        e.nbytes for e in ent.values()))
                     yield ("dev", ent, m.num_rows)
                     continue
                 if store.record_miss(m.portion_id):
@@ -597,7 +626,9 @@ def mixed_blocks(items, names, sch, cap, timer=None, stager=None,
         ctx = (timer.stage("stage") if timer is not None
                else contextlib.nullcontext())
         with ctx:
-            return stager.from_numpy(cols, valid, sch, cap)
+            blk = stager.from_numpy(cols, valid, sch, cap)
+        timeline.add_bytes("staged_bytes", block_nbytes(blk))
+        return blk
 
     it = iter(items)
     emitted = 0

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch import dtypes
-from ydb_tpu_torch.analysis import budget_ok, memsan
+from ydb_tpu_torch.analysis import budget_ok, host_ok, memsan
 from ydb_tpu_torch.blocks.block import (
     Column,
     TableBlock,
@@ -180,6 +180,18 @@ def required_columns(program: Program, schema: dtypes.Schema) -> tuple[str, ...]
         )
         return (cheapest.name,)
     return tuple(n for n in schema.names if n in used)
+
+
+@host_ok("timeline-only end-of-scan sync: while the data-movement "
+         "timeline is on, the result materializes inside the compute "
+         "stage interval so occupancy attribution stays exact; the "
+         "default path stays lazy")
+def _settle(out: TableBlock) -> None:
+    """Wait for the stream that produced ``out`` (one sync; nothing on
+    the CPU, where every op has already run)."""
+    dev = out.length.device
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
 
 
 class ScanExecutor:
@@ -372,6 +384,9 @@ class ScanExecutor:
                        else concat_blocks(partials))
             else:
                 out = self.finalize(partials)
+            from ydb_tpu_torch.obs import timeline
+            if timeline.timeline_enabled():
+                _settle(out)
             return self._retype(out)
 
     def _stamp_nullability(self, sch: dtypes.Schema) -> dtypes.Schema:

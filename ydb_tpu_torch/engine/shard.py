@@ -6,8 +6,9 @@ block cache and resident tier hold their tensors. The pruning, stage and
 pipeline counters stay plain attributes (``last_scan_pruning``,
 ``last_scan_stages``, ``last_scan_pipeline``, ``pruning_totals``); the
 scan cache, its lock, the stats lock and ``pruning_totals`` are
-thread-sanitizer tracked. The reference's probe and tracing hooks come
-with ROADMAP.md queue A item 7.
+thread-sanitizer tracked. Commits, scans (with their stage and pruning
+counters) and compactions fire the ``columnshard.*`` probes, and a scan
+under an active trace rides a ``shard.scan`` span.
 
 Mirror of the reference's ColumnShard + column engine
 (tx/columnshard/columnshard_impl.h:134; TColumnEngineForLogs
@@ -63,7 +64,16 @@ from ydb_tpu_torch.engine.portion import (
     write_portion_blob,
 )
 from ydb_tpu_torch.engine.scan import ColumnSource, ScanExecutor
+from ydb_tpu_torch.obs.probes import probe
 from ydb_tpu_torch.ssa.program import Program
+
+# lwtrace-style probes (ydb_tpu_torch.obs.probes): near-free when no
+# trace session is attached
+_P_COMMIT = probe("columnshard.commit")
+_P_SCAN = probe("columnshard.scan")
+_P_SCAN_STAGES = probe("columnshard.scan.stages")
+_P_SCAN_PRUNING = probe("columnshard.scan.pruning")
+_P_COMPACT = probe("columnshard.compact")
 
 
 @dataclasses.dataclass
@@ -308,6 +318,9 @@ class ColumnShard:
                     f"{self.snap}")
             batches = [self._insert_buffer.pop(w) for w in write_ids]
             self.snap = snap
+        if _P_COMMIT:
+            _P_COMMIT.fire(shard=self.shard_id, snap=snap,
+                           writes=len(write_ids))
         if not batches:
             self._log({"op": "noop", "snap": snap})
             return snap
@@ -510,6 +523,19 @@ class ColumnShard:
         key_spaces: dict[str, int] | None = None,
         table_stats=None,
     ) -> OracleTable:
+        from ydb_tpu_torch.obs import tracing
+
+        # profile surface: when a query trace is active the scan's
+        # stage seconds / pruning counters / compile-cache status ride
+        # a "shard.scan" span (the same numbers the probes fire)
+        with tracing.span("shard.scan") as sp:
+            return self._scan_profiled(program, snap, key_spaces,
+                                       table_stats, sp)
+
+    def _scan_profiled(
+        self, program: Program, snap: int | None,
+        key_spaces: dict[str, int] | None, table_stats, sp,
+    ) -> OracleTable:
         """Streamed scan: portion-granular fetch -> (PK merge/dedup) ->
         fixed-capacity device blocks -> compiled program. Host memory is
         bounded by the largest PK-overlap cluster, not the table
@@ -684,6 +710,34 @@ class ColumnShard:
                 if k != "portions_total":
                     self.pruning_totals[k] += v
             self.pruning_totals["portions_total"] += len(visible)
+        if _P_SCAN_PRUNING:
+            _P_SCAN_PRUNING.fire(shard=self.shard_id, **pruning)
+        if _P_SCAN_STAGES:
+            _P_SCAN_STAGES.fire(shard=self.shard_id,
+                                **self.last_scan_stages)
+        if _P_SCAN:
+            _P_SCAN.fire(shard=self.shard_id,
+                         portions=len(src.metas),
+                         chunks_read=src.chunks_read,
+                         compiled_fresh=fresh,
+                         block_cache_hit=self.block_cache.hits
+                         > hit_before,
+                         resident_portions=src.resident_hits,
+                         resident_rows=src.resident_rows)
+        if sp.recording:
+            sp.set(shard=self.shard_id, rows=int(out.num_rows),
+                   compile_cache=("miss" if fresh else "hit"),
+                   resident_portions=src.resident_hits,
+                   resident_rows=src.resident_rows,
+                   **{f"stage_{k}": v
+                      for k, v in self.last_scan_stages.items()},
+                   **pruning)
+            if self.last_scan_pipeline is not None:
+                sp.set(**{f"pipe_{k}": v
+                          for k, v in self.last_scan_pipeline.items()})
+            if fresh and ex.first_trace_seconds:
+                sp.set(first_trace_seconds=round(
+                    ex.first_trace_seconds, 6))
         return out
 
     def _group_hints(self, program: Program, metas, key_spaces: dict,
@@ -798,6 +852,10 @@ class ColumnShard:
 
         self._in_compaction = True
         snap = self._advance_snap()
+        if _P_COMPACT:
+            _P_COMPACT.fire(shard=self.shard_id, snap=snap,
+                            clusters=len(clusters),
+                            portions=len(metas))
         # output portions are WAL-staged and only activate at the
         # cluster's compact_commit record, which also carries the removal
         # tombstones: a crash anywhere mid-stream replays to the exact

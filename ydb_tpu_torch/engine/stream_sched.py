@@ -4,8 +4,8 @@ The port of ``ydb_tpu/engine/stream_sched.py``. Its double-buffered
 device slabs are pinned host slabs copied on the scan's side CUDA
 stream and fenced with an event per block (``engine/staging.py``); the
 rest is the reference's host scheduling, unchanged, with its leak
-handle per morsel and its tracked lock. The timeline hooks come with
-ROADMAP.md queue A item 7.
+handle per morsel, its tracked lock and its ``resident_bytes`` counter
+(``obs/timeline.py``).
 
 The serialized OOC read path runs blob read -> decode -> stage ->
 compute as one chain per portion: a single conveyor producer does all
@@ -64,6 +64,7 @@ import threading
 
 from ydb_tpu_torch.analysis import leaksan, sanitizer
 from ydb_tpu_torch.chaos import deadline as statement_deadline
+from ydb_tpu_torch.obs import timeline
 from ydb_tpu_torch.engine.portion import (_TRANSIENT_READ,
                                           PortionChunkReader,
                                           project_chunk)
@@ -196,6 +197,8 @@ def plan_morsels(parts, names, device=None):
                     if ent is not None:
                         source.resident_hits += 1
                         source.resident_rows += m.num_rows
+                        timeline.add_bytes("resident_bytes", sum(
+                            e.nbytes for e in ent.values()))
                         yield _DevMorsel(ent, m.num_rows)
                         continue
                     if store.record_miss(m.portion_id):

@@ -28,10 +28,17 @@ Left out, each for a later item of ROADMAP.md queue A, with a typed
 ``PlanError`` naming it where a statement reaches it: the row store
 (``WITH (store = row)``, UPDATE, DELETE, INSERT inside a transaction)
 and sequences (``CREATE SEQUENCE``, ``nextval``); changefeeds and
-topics; sys views; the quoter; the mesh executor; the ``kqp.plan_cache``
-and ``query.slow`` probes (the slow-query check still counts); the
-chaos site ``session.admit``; the page-cache pressure reaction and the
-movement and chaos counters of ``run_background``.
+topics; sys views (``sys_active_queries`` and ``sys_top_queries``
+with them); the quoter; the mesh executor; the page-cache pressure
+reaction of ``run_background`` (the blob-storage page cache comes with
+the cluster plane).
+
+Observability and chaos: the ``kqp.plan_cache`` probe fires per plan
+lookup and ``query.slow`` once per statement past
+YDB_TPU_TORCH_SLOW_QUERY_SECONDS (the watchdog rides
+``run_background``); the ``session.admit`` chaos site sheds a statement
+with ``OverloadedError``; ``run_background`` exports the conveyor queue
+telemetry and the ``movement`` and ``chaos`` counter groups.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from collections import OrderedDict, deque
 
 import numpy as np
 
-from ydb_tpu_torch import dtypes
+from ydb_tpu_torch import chaos, dtypes
 from ydb_tpu_torch.analysis import leaksan as _leaksan
 from ydb_tpu_torch.analysis import memsan as _memsan
 from ydb_tpu_torch.analysis import sanitizer as _san
@@ -62,8 +69,12 @@ from ydb_tpu_torch.sql.planner import (
     PlanError,
     plan_select_full,
 )
+from ydb_tpu_torch.obs.probes import probe as _probe
 from ydb_tpu_torch.tx import Coordinator, ShardedTable
 from ydb_tpu_torch.tx.coordinator import TxResult
+
+_P_PLAN_CACHE = _probe("kqp.plan_cache")
+_P_SLOW = _probe("query.slow")
 
 # conveyor queue-depth histogram buckets (task counts, not seconds)
 _DEPTH_BOUNDS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
@@ -586,6 +597,33 @@ class Cluster:
             for w in waits:
                 h.observe(w)
         stats["conveyor_depth"] = qs["depth"]
+        # data-movement byte counters (always-on, obs.timeline): bytes
+        # read from blobs, decoded, staged to device and served resident
+        # — the /counters movement surface
+        from ydb_tpu_torch.obs import timeline as _tl
+
+        mv = _tl.movement_snapshot()
+        if mv:
+            g = self.counters.group(component="movement")
+            for k, v in mv.items():
+                g.counter(k).set(v)
+        # chaos telemetry (only when a scenario is armed or counted):
+        # per-site hit/fired counts, fallbacks taken and retry totals,
+        # under component="chaos"
+        cs = chaos.counters_snapshot()
+        if cs:
+            for site, st in cs.get("sites", {}).items():
+                g = self.counters.group(component="chaos", site=site)
+                g.counter("hits").set(st["hits"])
+                g.counter("fired").set(st["fired"])
+            for site, n in cs.get("fallbacks", {}).items():
+                self.counters.group(
+                    component="chaos",
+                    site=site).counter("fallbacks").set(n)
+            for site, n in cs.get("retries", {}).items():
+                self.counters.group(
+                    component="chaos",
+                    site=site).counter("retries").set(n)
         # batching dispatcher telemetry (serving tier)
         bt = self.batcher
         if bt.armed() or bt.batches or bt.solo:
@@ -666,8 +704,9 @@ class Cluster:
         return entries
 
     def check_slow_queries(self) -> int:
-        """Count (once per statement, into ``slow_queries``) in-flight
-        statements past YDB_TPU_TORCH_SLOW_QUERY_SECONDS. Rides the
+        """Fire the query.slow probe for any in-flight statement past
+        the YDB_TPU_TORCH_SLOW_QUERY_SECONDS threshold (once per
+        statement, also counted into ``slow_queries``). Rides the
         run_background cadence; callable directly too."""
         try:
             threshold = float(os.environ.get(
@@ -681,6 +720,9 @@ class Cluster:
                 if e["slow_fired"] or now - e["start"] < threshold:
                     continue
                 e["slow_fired"] = True
+                _P_SLOW.fire(
+                    elapsed=round(now - e["start"], 3),
+                    stage=e["stage"], sql=e["sql"][:120])
                 fired += 1
             self.slow_queries += fired
         return fired
@@ -884,9 +926,13 @@ class Cluster:
         if snap is None and access_check is None:
             hit = self._plan_cache.get(sql)
             if hit is not None:
+                if _P_PLAN_CACHE:
+                    _P_PLAN_CACHE.fire(hit=True)
                 tracing.annotate(plan_cache="hit")
                 self._plan_cache.move_to_end(sql)
                 return hit
+            if _P_PLAN_CACHE:
+                _P_PLAN_CACHE.fire(hit=False)
             tracing.annotate(plan_cache="miss")
         with tracing.span("parse"):
             stmt = parse(sql)
@@ -1015,16 +1061,23 @@ class Session:
         # of the latency operators observe
         # load shedding BEFORE the statement enters the registry: past
         # the configured in-flight limit the cluster fails fast with a
-        # typed error instead of queueing unboundedly. With a front door
-        # installed the per-tenant caps are the shedding boundary and
-        # this global valve is only a backstop.
+        # typed error instead of queueing unboundedly. The chaos
+        # "session.admit" site injects the same overload. With a front
+        # door installed the per-tenant caps are the shedding boundary
+        # and this global valve is only a backstop.
         limit = c.max_inflight_statements
-        if limit > 0 and len(c.active_queries) >= limit:
+        shed = limit > 0 and len(c.active_queries) >= limit
+        fault = None if shed else chaos.hit("session.admit")
+        if fault is not None:
+            fault.sleep()
+            shed = shed or fault.kind == "overload"
+        if shed:
             c.counters.group(kind="overloaded").counter("queries").inc()
             self._record_rejected(sql, t0, "overloaded")
             raise OverloadedError(
                 f"statement shed at admission "
-                f"({len(c.active_queries)} in flight, limit {limit})")
+                f"({len(c.active_queries)} in flight, limit {limit})"
+                if limit else "statement shed at admission (injected)")
         statement_dl = _dl.Deadline(timeout) if timeout is not None \
             else None
         fd = c.front_door

@@ -1,4 +1,4 @@
-"""Observability: counters, tracing spans, query profiles, metering and
-the scan's per-stage timer. The timeline ring, the probes beyond
-``StageTimer``, the kernel bench and the viewer wait for ROADMAP.md
-queue A items 7 and 9."""
+"""Observability: counters, tracing spans, query profiles, metering, the
+probe registry with the scan's per-stage timer, the data-movement
+timeline, tablet counters and the kernel bench. The viewer and the sys
+views wait for ROADMAP.md queue A item 9."""

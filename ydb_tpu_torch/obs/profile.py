@@ -17,8 +17,10 @@ and ``EXPLAIN ANALYZE`` rendering.
 The port's own copy of ``ydb_tpu/obs/profile.py``, built from the port's
 spans; ``compile_cache`` reads the hits and misses of the port's
 ``Database._compile_cache`` from the ``scan``, ``transform`` and
-``plan.fuse`` spans. Left out: the timeline ring's stage occupancy
-(ROADMAP.md queue A, tracing).
+``plan.fuse`` spans. While the data-movement timeline
+(``obs/timeline.py``) is on, ``stage_occupancy`` holds the query's busy
+share per stage and its overlap coefficients, and EXPLAIN ANALYZE
+prints them.
 """
 
 from __future__ import annotations
@@ -228,6 +230,11 @@ def build_profile(spans, sql: str = "", kind: str = "",
     p.host_seconds = round(sum(
         v for k, v in p.stages.items() if k != "compute"), 6)
     p.spans = [_span_dict(s) for s in spans]
+    from ydb_tpu_torch.obs import timeline
+
+    if timeline.timeline_enabled() and p.trace_id:
+        p.stage_occupancy = timeline.query_occupancy(
+            p.trace_id, wall=p.seconds or None)
     return p
 
 

@@ -24,9 +24,9 @@ of their attribute computation) happen anywhere below the session.
 ``PROFILE_FORCE`` is the in-process test override (same contract as
 stats.STATS_FORCE).
 
-The port's own copy of ``ydb_tpu/obs/tracing.py``. Left out: the
-timeline ring that finished spans also feed in the reference (its
-``obs/timeline.py``; ROADMAP.md queue A item 7).
+The port's own copy of ``ydb_tpu/obs/tracing.py``. While the
+data-movement timeline is on (``obs/timeline.py``), every finished span
+also lands in its ring as a ``span`` interval.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ import threading
 import time
 
 from ydb_tpu_torch.analysis import sanitizer
-
+from ydb_tpu_torch.obs import timeline
 
 _ids = itertools.count(1)
 
@@ -91,6 +91,15 @@ class Span:
         if self.end is None:
             self.end = self._clock()
             self.tracer._record(self)
+            if timeline.timeline_enabled():
+                # anchor on the duration, not the span's own clock:
+                # spans run on ``clock`` (monotonic by default) while
+                # the timeline axis is perf_counter — re-basing the
+                # interval to end-now keeps one consistent axis
+                now = time.perf_counter()
+                timeline.RING.record(
+                    self.name, "span", now - (self.end - self.start),
+                    now, self.trace_id)
 
     def __enter__(self):
         return self

@@ -25,24 +25,31 @@ shards' resident tier is on, and DQ takes each shard's stream as one
 partition. DQ join stages size their output exactly from the match
 count, so the reference's statistics-based join sizing
 (``Database.table_stats`` into ``plan_to_stages(estimator=...)``) has
-nothing to size here and is left out. Not in the port yet, each with
-its ROADMAP.md queue A item: probes and the ``fuse.trace`` chaos hook,
-and the mesh executor.
+nothing to size here and is left out. The ``fuse.trace`` chaos site
+declines fusion before any capture, so the walk answers. Not in the
+port yet: the mesh executor (ROADMAP.md queue A item 13).
 
 Spans (``obs/tracing.py``; no-ops outside an activated trace): ``scan``,
 ``transform``, ``dq`` and ``plan.fuse``, with the compile-cache hit or
-miss the query profile reads. A top-level ``execute_plan`` and
-``to_host`` hold ``device.work_lock`` shared, so a CUDA graph capture on
-another thread never overlaps their device work.
+miss the query profile reads. While a trace records or a probe session
+listens, scans charge a ``StageTimer`` (read / merge / stage / compute)
+onto their span and fire the ``columnshard.scan.stages`` /
+``columnshard.scan.pruning`` probes with ``shard=-1``; the span carries
+no row count, which would cost a device sync (the session's profile
+takes its rows from the fetched result). A top-level ``execute_plan``
+and ``to_host`` hold ``device.work_lock`` shared, so a CUDA graph
+capture on another thread never overlaps their device work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
 import torch
 
+from ydb_tpu_torch import chaos
 from ydb_tpu_torch.analysis import host_ok
 from ydb_tpu_torch.analysis.verify import check_program
 from ydb_tpu_torch.blocks.block import TableBlock, concat_blocks, device_aux
@@ -52,6 +59,8 @@ from ydb_tpu_torch.device import resolve_device, work_lock
 from ydb_tpu_torch.engine.oracle import OracleTable
 from ydb_tpu_torch.engine.scan import ColumnSource, ScanExecutor
 from ydb_tpu_torch.obs import tracing
+from ydb_tpu_torch.obs.probes import StageTimer
+from ydb_tpu_torch.obs.probes import probe as _probe
 from ydb_tpu_torch.plan.nodes import (
     Concat,
     ExpandJoin,
@@ -62,6 +71,11 @@ from ydb_tpu_torch.plan.nodes import (
 )
 from ydb_tpu_torch.ssa import join as join_kernels
 from ydb_tpu_torch.ssa.compiler import compile_program
+
+# the walk's and fusion's scans fire the shard-level probes with
+# shard=-1 (one event per scanned table)
+_P_SCAN_STAGES = _probe("columnshard.scan.stages")
+_P_SCAN_PRUNING = _probe("columnshard.scan.pruning")
 
 #: rows per block of a table scan (the reference's SQL scan block size)
 SCAN_BLOCK_ROWS = 1 << 22
@@ -222,6 +236,11 @@ def _run_dq_graph(plan, parts, rt, db: Database) -> TableBlock | None:
             # the typed cancellation, not a generic incompletion
             raise statement_deadline.StatementCancelled(err)
         if not handle.collector.done:
+            # the local graph has no abort target: source tasks past the
+            # statement deadline stop pumping and the graph stalls. That
+            # stall IS the cancellation — surface it typed (the
+            # reference reports a generic incompletion here)
+            statement_deadline.check_current("DQ stage graph")
             raise RuntimeError("DQ stage graph did not complete")
         return handle.collector.result_block()
     finally:
@@ -274,20 +293,74 @@ def _scan_node(plan: TableScan, db: Database, dev, sp) -> TableBlock:
     src = db.sources[plan.table]
     key = (plan.table, plan.program)
     ex = db._compile_cache.get(key)
-    sp.set(table=plan.table,
-           compile_cache="miss" if ex is None else "hit")
-    if ex is None:
+    fresh = ex is None
+    sp.set(table=plan.table, compile_cache="miss" if fresh else "hit")
+    if fresh:
         ex = ScanExecutor(
             plan.program, src, block_rows=SCAN_BLOCK_ROWS, device=dev,
             key_spaces=db.key_spaces,
         ).detach()  # cache compiled state, not the source
         db._compile_cache[key] = ex
-    # zone-map scan pruning (stats.zonemap): the pushdown program's
-    # conjunctive filters skip portions/chunks before any blob read;
-    # the pruned view carries its predicate fingerprint into the device
-    # cache key, so pruned streams never alias unpruned ones
-    src = _pruned_source(src, plan.program, db)
-    return ex.run_stream(_cached_stream(src, ex.read_cols, db, dev))
+    # stage accounting while a query trace records OR a probe session
+    # listens. Attaching the timer threads per-chunk charging through the
+    # staging pipeline; it is attached to the base source for this run
+    # only (a Database reused across statements shares its sources) and
+    # detached after the stream drains.
+    want_stats = (sp.recording or bool(_P_SCAN_STAGES)
+                  or bool(_P_SCAN_PRUNING))
+    timer = None
+    base_src = src
+    if want_stats:
+        timer = StageTimer()
+        if hasattr(base_src, "attach_timer"):
+            base_src.attach_timer(timer)
+    try:
+        # zone-map scan pruning (stats.zonemap): the pushdown program's
+        # conjunctive filters skip portions/chunks before any blob
+        # read; the pruned view carries its predicate fingerprint into
+        # the device cache key, so pruned streams never alias unpruned
+        # ones
+        src = _pruned_source(src, plan.program, db)
+        # chunk counters are cumulative on the source object: the span
+        # reports this run's DELTA
+        chunks0 = _scan_counters(src)
+        out = ex.run_stream(_cached_stream(src, ex.read_cols, db, dev),
+                            timer=timer)
+    finally:
+        if timer is not None and hasattr(base_src, "attach_timer"):
+            base_src.attach_timer(None)
+    if want_stats:
+        _emit_scan_obs(sp, plan.table, timer, src, chunks0)
+        if sp.recording and fresh and ex.first_trace_seconds:
+            sp.set(first_trace_seconds=round(ex.first_trace_seconds, 6))
+    return out
+
+
+def _scan_counters(src) -> dict:
+    return {k: int(getattr(src, k, 0))
+            for k in ("chunks_read", "chunks_skipped", "resident_hits",
+                      "resident_rows")}
+
+
+def _emit_scan_obs(sp, table, timer, src, chunks0) -> None:
+    """A scan's stage seconds and pruning deltas onto its span and the
+    shard=-1 probes."""
+    stages = timer.snapshot()
+    pruning = {k: v - chunks0[k] for k, v in _scan_counters(src).items()}
+    # resident-hit attribution: EXPLAIN ANALYZE shows how much of the
+    # scan the device-resident tier served without touching host bytes
+    pruning["resident_portions"] = pruning.pop("resident_hits")
+    pruning["portions_skipped"] = int(getattr(src, "portions_skipped", 0))
+    pruning["portions_total"] = pruning["portions_skipped"] + sum(
+        len(s.metas) for s in getattr(src, "subs", ()))
+    if sp.recording:
+        sp.set(table=table,
+               **{f"stage_{k}": v for k, v in stages.items()},
+               **pruning)
+    if _P_SCAN_STAGES:
+        _P_SCAN_STAGES.fire(shard=-1, **stages)
+    if _P_SCAN_PRUNING:
+        _P_SCAN_PRUNING.fire(shard=-1, **pruning)
 
 
 @host_ok("scan staging boundary: host source arrays cross to the"
@@ -323,28 +396,50 @@ def _stage_fused_site(site, db: Database, fused=None) -> TableBlock:
                                  capacity=site.capacity, device=dev)
 
 
-def _run_fused(fused, db: Database) -> TableBlock:
+def _run_fused(fused, db: Database, fsp) -> TableBlock:
     """Stage every scan site, dispatch the fused plan once, and handle
     expand-join overflow: grow the capacity (the cached plan keeps it for
     later statements) and dispatch again over the same staged inputs,
     which no dispatch writes. The plan's lock is held from staging to
     the result, so no other statement restages its inputs between. A
     capture that must wait for other statements' device work restarts
-    the statement's dispatch under ``device.work_lock`` exclusively."""
+    the statement's dispatch under ``device.work_lock`` exclusively.
+
+    Observability follows the walk while a trace records or a probe
+    session listens: one ``scan`` span, named for the largest table,
+    charges the staging of every site to "stage" and the dispatch to
+    "compute", and fires the shard=-1 probes."""
     from ydb_tpu_torch.ssa import plan_fuse
 
-    return plan_fuse.with_capture_retry(lambda: _run_fused_locked(fused, db))
+    if not (fsp.recording or _P_SCAN_STAGES or _P_SCAN_PRUNING):
+        return plan_fuse.with_capture_retry(
+            lambda: _run_fused_locked(fused, db, None))
+    site = max(fused.sites, key=lambda st: st.capacity)
+    src = db.sources[site.table]
+    with tracing.span("scan") as sp:
+        timer = StageTimer()
+        chunks0 = _scan_counters(src)
+        out = plan_fuse.with_capture_retry(
+            lambda: _run_fused_locked(fused, db, timer))
+        _emit_scan_obs(sp, site.table, timer, src, chunks0)
+    return out
 
 
-def _run_fused_locked(fused, db: Database) -> TableBlock:
+def _run_fused_locked(fused, db: Database, timer) -> TableBlock:
+    def charged(stage):
+        return (timer.stage(stage) if timer is not None
+                else contextlib.nullcontext())
+
     with fused.lock:
-        inputs = {s.key: _stage_fused_site(s, db, fused)
-                  for s in fused.sites}
+        with charged("stage"):
+            inputs = {s.key: _stage_fused_site(s, db, fused)
+                      for s in fused.sites}
         while True:
             # cooperative cancellation between (uninterruptible) fused
             # dispatches: a statement past its deadline stops here
             statement_deadline.check_current("fused dispatch")
-            out, totals = fused.run(inputs)
+            with charged("compute"):
+                out, totals = fused.run(inputs)
             over = fused.overflowed(totals)
             if not over:
                 return out
@@ -362,6 +457,12 @@ def _execute_plan_fused(plan: PlanNode, db: Database) -> TableBlock | None:
     sig = plan_fuse.plan_signature_cached(plan, db)
     if sig is None or not sig.sites:
         return None
+    if chaos.hit("fuse.trace") is not None:
+        # injected trace failure, before any capture or exclusive hold
+        # of device.work_lock: the fused path declines the plan and the
+        # walk answers, bit-identical
+        chaos.note_fallback("fuse.trace")
+        return None
     key = sig.cache_key(db)
     fused = db._compile_cache.get(key)
     fresh = fused is None
@@ -373,7 +474,7 @@ def _execute_plan_fused(plan: PlanNode, db: Database) -> TableBlock | None:
                 return None
             db._compile_cache[key] = fused
         ft0 = fused.first_trace_seconds or 0.0
-        out = _run_fused(fused, db)
+        out = _run_fused(fused, db, fsp)
         if fsp.recording:
             fsp.set(fused_stages=fused.fused_stages,
                     fragments_elided=fused.fused_stages - 1,

@@ -8,9 +8,12 @@ with an ICSController test seam to stall/step background work
 (ydb/core/tx/columnshard/hooks/abstract/abstract.h:49).
 
 The port's own copy of ``ydb_tpu/runtime/conveyor.py``, with its leak
-handles, tracked locks and span propagation; the chaos and timeline
-hooks come with ROADMAP.md queue A item 7. Background work is HOST work
-(blob IO, merges, metadata) — the accelerator never blocks on it. This module provides:
+handles, tracked locks, span propagation, the ``conveyor.task`` chaos
+site (``delay``, ``drop``, ``worker_death``: the pool respawns the
+dead worker) and the ``<queue>.wait`` / ``<queue>.run`` timeline
+intervals. The fault fires before the task body runs, so a dying worker
+holds no device lock. Background work is HOST work (blob IO, merges,
+metadata) — the accelerator never blocks on it. This module provides:
 
   * ``ResourceBroker`` — per-queue concurrency quotas under one total
   * ``Conveyor``       — worker threads draining a priority queue,
@@ -27,9 +30,10 @@ import os
 import threading
 import time
 
+from ydb_tpu_torch import chaos
 from ydb_tpu_torch.analysis import leaksan, sanitizer
 from ydb_tpu_torch.chaos import deadline as statement_deadline
-from ydb_tpu_torch.obs import tracing
+from ydb_tpu_torch.obs import timeline, tracing
 
 #: queue-wait samples retained per queue between ``queue_stats``
 #: snapshots; beyond it the extra waits still count in the totals but
@@ -311,6 +315,12 @@ class Conveyor:
                     ws = self._waits[queue] = []
                 if len(ws) < WAIT_SAMPLE_CAP:
                     ws.append(t_pop - t_sub)
+            tl = timeline.timeline_enabled()
+            if tl:
+                timeline.RING.record(
+                    f"{queue}.wait", "conveyor.wait", t_sub, t_pop,
+                    args={"queue": queue})
+            die = False
             try:
                 try:
                     # stop-aware gates: shutdown() while the controller
@@ -327,12 +337,28 @@ class Conveyor:
                 except ConveyorTimeout as e:
                     h.error = e  # slot never granted: nothing to release
                     continue
+                t_run = time.perf_counter() if tl else t_pop
                 try:
+                    fault = chaos.hit("conveyor.task", queue=queue)
+                    if fault is not None:
+                        fault.sleep()  # 'delay' faults are just this
+                        if fault.kind == "drop":
+                            raise chaos.ChaosError(
+                                f"injected task drop (queue={queue})")
+                        if fault.kind == "worker_death":
+                            die = True
+                            raise chaos.ChaosError(
+                                f"injected worker death (queue={queue})")
                     h.result = fn(*args, **kwargs)
                 except BaseException as e:  # surfaced via handle.wait()
                     h.error = e
                 finally:
                     self.broker.release(queue)
+                    if tl:
+                        timeline.RING.record(
+                            f"{queue}.run", "conveyor.run", t_run,
+                            time.perf_counter(),
+                            args={"queue": queue})
             finally:
                 leaksan.close(h.leak)
                 h.done.set()
@@ -341,6 +367,11 @@ class Conveyor:
                     self._active_q[queue] -= 1
                     self._completed += 1
                     self._cv.notify_all()
+            if die:
+                # the injected death kills THIS thread; the pool heals
+                # by spawning a replacement before it exits
+                self._respawn()
+                return
 
     def wait_idle(self, timeout: float = 30.0) -> None:
         deadline = threading.Event()
@@ -361,6 +392,21 @@ class Conveyor:
                         f"queues={busy}")
         finally:
             t.cancel()
+
+    def _respawn(self) -> None:
+        """Replace the calling (dying) worker thread so injected worker
+        deaths never shrink the pool."""
+        cur = threading.current_thread()
+        with self._cv:
+            if self._stopping:
+                return
+            t = threading.Thread(target=self._worker, daemon=True)
+            try:
+                self._threads.remove(cur)
+            except ValueError:
+                pass
+            self._threads.append(t)
+        t.start()
 
     def shutdown(self, wait: bool = True) -> None:
         with self._cv:

@@ -24,9 +24,10 @@ and a resident-store byte entitlement (reported on ``sys_tenant_pools``
 and enforced at promotion time by the resident tier's global budget).
 
 The port's own copy of ``ydb_tpu/serving/admission.py``, with the leak
-sanitizer's handle per seat. Left out until ROADMAP.md queue A item 7:
-the ``serving.admit`` chaos site. The resident entitlement is
-a share of the resident tier's budget on the cluster's device.
+sanitizer's handle per seat and the ``serving.admit`` chaos site
+(``overload`` sheds with the pool named, ``delay`` sleeps). The
+resident entitlement is a share of the resident tier's budget on the
+cluster's device.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import os
 import threading
 import time
 
+from ydb_tpu_torch import chaos
 from ydb_tpu_torch.analysis import leaksan
 from ydb_tpu_torch.kqp.rm import OverloadedError, WorkloadService
 from ydb_tpu_torch.serving.tenants import DEFAULT_TENANT, TenantRegistry
@@ -154,6 +156,13 @@ class FrontDoor:
         full, the wait times out, or the statement deadline expires
         while queued."""
         name = tenant or DEFAULT_TENANT
+        fault = chaos.hit("serving.admit", tenant=name)
+        if fault is not None:
+            fault.sleep()
+            if fault.kind == "overload":
+                self._count(name, "shed")
+                raise OverloadedError(
+                    f"tenant pool '{name}' overloaded (injected)")
         give_up = time.monotonic() + timeout
         if deadline_at is not None:
             give_up = min(give_up, deadline_at)

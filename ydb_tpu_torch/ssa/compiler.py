@@ -26,6 +26,7 @@ from ydb_tpu_torch import dtypes
 from ydb_tpu_torch.analysis import memsan, syncsan
 from ydb_tpu_torch.blocks.block import Column, TableBlock, device_aux
 from ydb_tpu_torch.blocks.dictionary import DictionarySet
+from ydb_tpu_torch.obs import tracing
 from ydb_tpu_torch.ssa import kernels
 from ydb_tpu_torch.ssa.kernels import floordiv
 from ydb_tpu_torch.ssa.ops import Agg, Op
@@ -132,18 +133,35 @@ def _compile_program(
 ) -> CompiledProgram:
     """The span-free lowering entry point that whole-plan fusion
     (``ssa/plan_fuse.py``) calls for every fragment, with the reference's
-    signature. The port has no tracing spans yet, so it is
-    ``compile_program``; the ``partial_slots`` layout (dense group-by
-    states kept in their slots) comes with the mesh executor."""
+    signature (its one ``ssa.compile`` span covers the whole build); the
+    ``partial_slots`` layout (dense group-by states kept in their slots)
+    comes with the mesh executor."""
     if partial_slots:
         raise NotImplementedError(
             "partial_slots (the dense_slots group-by layout) is not in the "
             "port yet")
-    return compile_program(program, schema, dicts, key_spaces,
-                           dict_aliases=dict_aliases, group_est=group_est)
+    return _lower_program(program, schema, dicts, key_spaces, dict_aliases,
+                          group_est)
 
 
 def compile_program(
+    program: Program,
+    schema: dtypes.Schema,
+    dicts: DictionarySet | None = None,
+    key_spaces: dict[str, int] | None = None,
+    dict_aliases: dict[str, str] | None = None,
+    group_est: float | None = None,
+) -> CompiledProgram:
+    # program lowering is attributed to the active query trace (the
+    # "ssa.compile" spans are the compile half of the compile-vs-execute
+    # split). NULL span when no trace is active.
+    with tracing.span("ssa.compile") as _sp:
+        _sp.set(steps=len(program.steps), cols=len(schema.names))
+        return _lower_program(program, schema, dicts, key_spaces,
+                              dict_aliases, group_est)
+
+
+def _lower_program(
     program: Program,
     schema: dtypes.Schema,
     dicts: DictionarySet | None = None,

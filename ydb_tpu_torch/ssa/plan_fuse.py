@@ -76,9 +76,10 @@ cached plan keeps it for later statements.
 
 Env gates: ``YDB_TPU_TORCH_FUSE_PLAN=0`` disables fusion (``FUSE_FORCE``
 overrides it in-process); ``YDB_TPU_TORCH_FUSE_MAX_ROWS`` moves the
-cutoff. Not in the port yet: the ``ssa.compile``/``plan.fuse`` spans and
-the timeline (item 7 of ROADMAP.md queue A), and the mesh lowering that
-subclasses ``PlanLowering`` (item 13).
+cutoff. A build is one ``ssa.compile`` span; while the data-movement
+timeline is on, each replay's host enqueue is one ``plan.dispatch``
+interval (no sync is added). Not in the port yet: the mesh lowering
+that subclasses ``PlanLowering`` (ROADMAP.md queue A item 13).
 
 Sanitizer hooks: a capture reports itself to the sync sanitizer
 (``syncsan.count(captures=1)``); memsan charges each dispatch's output
@@ -111,6 +112,7 @@ from ydb_tpu_torch.blocks.block import (
 )
 from ydb_tpu_torch.device import capture_lock, resolve_device, work_lock
 from ydb_tpu_torch.engine.scan import merge_blocks_device, required_columns
+from ydb_tpu_torch.obs import timeline
 from ydb_tpu_torch.plan.nodes import (
     Concat,
     ExpandJoin,
@@ -744,8 +746,15 @@ class FusedPlan:
         from ydb_tpu_torch.ssa import cuda_kernels
 
         cur = torch.cuda.current_stream(self.device)
+        # the replay's host enqueue lands on the timeline (no sync: the
+        # block boundary shows where results landed)
+        t0 = time.perf_counter() if timeline.timeline_enabled() else None
         with torch.cuda.stream(self._stream):
             cap.graph.replay()
+        if t0 is not None:
+            timeline.RING.record("plan.dispatch", "dispatch", t0,
+                                 time.perf_counter(),
+                                 timeline.current_trace_id())
         self.replays += 1
         cuda_kernels.count_replay(cap.launches)
         # the clone runs on the caller's stream after the replay, and the
@@ -841,9 +850,15 @@ def slice_member(out: TableBlock, i: int) -> TableBlock:
 def build(sig: PlanSignature, db) -> FusedPlan:
     """Compile a fusible plan into one FusedPlan: every node's SSA
     program is verified and lowered up front, so the whole pipeline is
-    typed end to end before the first run (the reference's single
-    ``ssa.compile`` span comes with ROADMAP.md queue A item 7)."""
-    return _build(sig, db)
+    typed end to end before the first run. One ``ssa.compile`` span
+    covers the full build (the walk would emit one per fragment)."""
+    from ydb_tpu_torch.obs import tracing
+
+    with tracing.span("ssa.compile") as sp:
+        fused = _build(sig, db)
+        sp.set(fused_stages=fused.fused_stages,
+               cols=sum(len(s.read_cols) for s in sig.sites))
+    return fused
 
 
 class PlanLowering:

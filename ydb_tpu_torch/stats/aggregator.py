@@ -1,8 +1,7 @@
 """StatisticsAggregator: per-shard sketches folded into table stats.
 
 The port's own copy of ``ydb_tpu/stats/aggregator.py``, with its
-tracked lock and shared maps; its probe hooks come with ROADMAP.md queue
-A item 7. Mirror
+tracked lock, shared maps and ``stats.aggregator.refresh`` probe. Mirror
 of the reference's statistics aggregator tablet
 (ydb/core/statistics/aggregator/aggregator_impl.h; SURVEY.md §2.7): a
 service that periodically — and on demand after commit/compaction
@@ -27,8 +26,11 @@ import json
 import threading
 
 from ydb_tpu_torch.analysis import sanitizer
+from ydb_tpu_torch.obs.probes import probe
 from ydb_tpu_torch.stats.cost import ColumnStats, TableStats
 from ydb_tpu_torch.stats.sketch import ColumnSketch
+
+_P_REFRESH = probe("stats.aggregator.refresh")
 
 
 class StatisticsAggregator:
@@ -154,6 +156,9 @@ class StatisticsAggregator:
             self.executor.run(
                 lambda txc: txc.put("table_stats", (name,),
                                     {"json": payload}))
+        if _P_REFRESH:
+            _P_REFRESH.fire(table=name, rows=rows,
+                            columns=len(stats.columns))
         return stats
 
     def refresh_tables(self, tables: dict) -> dict:
