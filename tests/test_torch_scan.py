@@ -266,6 +266,13 @@ ANALYSIS_MODULES = (
     "ydb_tpu_torch.analysis.lifecycle", "ydb_tpu_torch.analysis.hotpath",
     "ydb_tpu_torch.analysis.devmem", "ydb_tpu_torch.analysis.__main__",
 )
+#: the row store and interactive transactions (ROADMAP.md queue A item 8)
+ROW_STORE_MODULES = (
+    "ydb_tpu_torch.datashard", "ydb_tpu_torch.datashard.shard",
+    "ydb_tpu_torch.datashard.read_iterator",
+    "ydb_tpu_torch.datashard.pipeline", "ydb_tpu_torch.datashard.table",
+    "ydb_tpu_torch.tx.mediator",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -289,7 +296,7 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         print(len(names))
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
            + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
-           + ANALYSIS_MODULES,))
+           + ANALYSIS_MODULES + ROW_STORE_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -297,4 +304,5 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
                                            + len(DQ_PATH_MODULES) + 1
                                            + len(STORAGE_PATH_MODULES)
                                            + len(SERVING_PATH_MODULES)
-                                           + len(ANALYSIS_MODULES))
+                                           + len(ANALYSIS_MODULES)
+                                           + len(ROW_STORE_MODULES))

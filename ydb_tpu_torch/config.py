@@ -9,8 +9,9 @@ immediate_control_board_wrapper.h:7), and feature flags consulted at
 gates (TFeatureFlags analog).
 
 The port's own copy of ``ydb_tpu/config.py``. The port's ``Cluster``
-has no row store and no sys views yet, whatever ``enable_row_tables``
-and ``enable_sys_views`` say (ROADMAP.md queue A).
+gates row tables on ``enable_row_tables`` as the reference does; it has
+no sys views and no changefeeds yet, whatever ``enable_sys_views`` and
+``enable_changefeeds`` say (ROADMAP.md queue A items 9 and 11).
 """
 
 from __future__ import annotations

@@ -11,27 +11,34 @@ gRPC request → session actor → compile (cached) → execute. Here:
     kqp_compile_service.cpp), plans against the catalog, and runs the
     plan executor at a consistent read snapshot
 
-DDL (CREATE TABLE) and DML (INSERT) execute directly against the state
-plane with coordinated commits.
+DDL (CREATE TABLE) and DML (INSERT, UPDATE, DELETE) execute directly
+against the state plane with coordinated commits; BEGIN / COMMIT /
+ROLLBACK buffer row-table writes and commit them as one volatile
+distributed transaction.
 
-The port's own copy of ``ydb_tpu/kqp/session.py``, for column tables.
-``Cluster(device=)`` (CUDA unless the caller names another device) hands
-its device to every shard, to its ``DeviceBlockCache`` and to each
-statement's ``Database``. The store layout is the reference's (scheme
-tablet, dictionary journal, shard WALs, plan-step clock, statistics
-snapshot), so a ``Cluster`` of either package boots from a store the
-other wrote. A statement's device work (``execute_plan``, ``to_host``,
-a batch's dispatch) holds ``device.work_lock`` shared, so a CUDA graph
-capture on another thread never overlaps it.
+The port's own copy of ``ydb_tpu/kqp/session.py``, for column and row
+tables (``WITH (store = row)``, ``datashard/``). ``Cluster(device=)``
+(CUDA unless the caller names another device) hands its device to every
+column shard, to its ``DeviceBlockCache`` and to each statement's
+``Database``. The store layout is the reference's (scheme tablet,
+dictionary journal, column and row shard WALs, plan-step clock,
+statistics snapshot), so a ``Cluster`` of either package boots from a
+store the other wrote. A statement builds a row table's
+``ColumnSource`` (``RowTable.source_at``) only when it reads that table,
+at the statement's one snapshot; the reference builds every row table's
+on every statement (off its mesh path). A statement's device work
+(``execute_plan``, ``to_host``, a batch's dispatch) holds
+``device.work_lock`` shared, so a CUDA graph capture on another thread
+never overlaps it; row DML takes its shard locks before it.
 
 Left out, each for a later item of ROADMAP.md queue A, with a typed
-``PlanError`` naming it where a statement reaches it: the row store
-(``WITH (store = row)``, UPDATE, DELETE, INSERT inside a transaction)
-and sequences (``CREATE SEQUENCE``, ``nextval``); changefeeds and
-topics; sys views (``sys_active_queries`` and ``sys_top_queries``
-with them); the quoter; the mesh executor; the page-cache pressure
-reaction of ``run_background`` (the blob-storage page cache comes with
-the cluster plane).
+``PlanError`` naming it where a statement reaches it: sequences
+(``CREATE SEQUENCE``, ``DROP SEQUENCE``, ``nextval``; item 10);
+changefeeds and topics (item 11); sys views (``sys_active_queries`` and
+``sys_top_queries`` with them; item 9); the quoter (item 10); the mesh
+executor (item 13); the page-cache pressure reaction of
+``run_background`` (the blob-storage page cache comes with the cluster
+plane, item 12).
 
 Observability and chaos: the ``kqp.plan_cache`` probe fires per plan
 lookup and ``query.slow`` once per statement past
@@ -53,6 +60,7 @@ from collections import OrderedDict, deque
 import numpy as np
 
 from ydb_tpu_torch import chaos, dtypes
+from ydb_tpu_torch.analysis import host_ok as _host_ok
 from ydb_tpu_torch.analysis import leaksan as _leaksan
 from ydb_tpu_torch.analysis import memsan as _memsan
 from ydb_tpu_torch.analysis import sanitizer as _san
@@ -67,6 +75,7 @@ from ydb_tpu_torch.sql.parser import parse
 from ydb_tpu_torch.sql.planner import (
     Catalog,
     PlanError,
+    plan_select,
     plan_select_full,
 )
 from ydb_tpu_torch.obs.probes import probe as _probe
@@ -79,12 +88,11 @@ _P_SLOW = _probe("query.slow")
 # conveyor queue-depth histogram buckets (task counts, not seconds)
 _DEPTH_BOUNDS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
-#: what a statement that needs the row store or sequences is told
-ROW_STORE_LATER = ("the port has no row store yet (ROADMAP.md queue A: "
-                   "row store and interactive transactions)")
-SEQUENCES_LATER = ("the port has no sequences yet (ROADMAP.md queue A: "
-                   "row store and interactive transactions, "
-                   "tablet/kesus.py)")
+#: what a statement that needs sequences or changefeeds is told
+SEQUENCES_LATER = ("the port has no sequences yet (ROADMAP.md queue A "
+                   "item 10: the gRPC front, with tablet/kesus.py)")
+CHANGEFEEDS_LATER = ("the port has no changefeeds yet (ROADMAP.md queue A "
+                     "item 11: streaming)")
 
 _TYPE_MAP = {
     "int8": dtypes.INT8, "int16": dtypes.INT16, "int32": dtypes.INT32,
@@ -182,15 +190,20 @@ class _BoundedCompileCache(dict):
 
 def table_stats(cluster) -> dict[str, dict]:
     """Per-table statistics from portion metas (the reference's
-    ``obs/sysview.table_stats(cluster, cheap=True)``, column tables):
-    row counts + PK bounds from portion METADATA only; feeds CBO join
-    ordering (``Catalog.row_counts``)."""
+    ``obs/sysview.table_stats(cluster, cheap=True)``): row counts + PK
+    bounds from portion METADATA only; feeds CBO join ordering
+    (``Catalog.row_counts``). Row tables report rows=None (unknown)
+    rather than paying a full page walk on every statement plan."""
     out: dict[str, dict] = {}
     for tname, t in cluster.tables.items():
         rows = 0
+        unknown = False
         portions = 0
         pk_min = pk_max = None
         for s in t.shards:
+            if not hasattr(s, "portions"):
+                unknown = True  # no metadata count for row tables
+                continue
             for m in s.visible_portions():
                 rows += m.num_rows
                 portions += 1
@@ -200,7 +213,8 @@ def table_stats(cluster) -> dict[str, dict]:
                 if m.pk_max is not None:
                     pk_max = (m.pk_max if pk_max is None
                               else max(pk_max, m.pk_max))
-        out[tname] = {"rows": rows, "portions": portions,
+        out[tname] = {"rows": None if unknown else rows,
+                      "portions": portions,
                       "pk_min": pk_min, "pk_max": pk_max}
     return out
 
@@ -245,7 +259,7 @@ class Cluster:
         self.store = store if store is not None else MemBlobStore()
         self.n_shards = (n_shards if n_shards is not None
                          else self.config.n_shards)
-        self.tables: dict[str, ShardedTable] = {}
+        self.tables: dict = {}  # name -> ShardedTable | RowTable
         #: every table's full primary key (the scheme's), for the planner
         self.primary_keys: dict[str, tuple] = {}
         self.counters = CounterGroup({"component": "kqp"})
@@ -344,10 +358,15 @@ class Cluster:
         for t in self.tables.values():
             t.coordinator = self.coordinator
             for s in t.shards:
-                s.snap_source = self.coordinator.background_plan
+                if hasattr(s, "snap_source"):
+                    s.snap_source = self.coordinator.background_plan
+        # finish any DROP COLUMN strip a crash interrupted (marker set
+        # durably before the scheme alter committed); column tables read
+        # dropped columns as absent by schema version
         for path in self.scheme.pending_strips():
-            # DROP COLUMN strips are a row-store step; column tables
-            # read dropped columns as absent by schema version
+            t = self.tables.get(path.strip("/"))
+            if t is not None and hasattr(t, "post_boot_sweep"):
+                t.post_boot_sweep()
             self.scheme.clear_strip(path)
         # sweep shard generations orphaned by a crash mid-reshard (the
         # scheme descriptor is the cutover truth; anything else is trash)
@@ -405,10 +424,11 @@ class Cluster:
     # ---- DDL / DML ----
 
     def _instantiate(self, desc, boot: bool = False):
+        from ydb_tpu_torch.datashard.table import RowTable
         from ydb_tpu_torch.engine.shard import ShardConfig
 
-        if desc.store == "row":
-            raise PlanError(f"table {desc.path}: {ROW_STORE_LATER}")
+        if desc.changefeed:
+            raise PlanError(f"table {desc.path}: {CHANGEFEEDS_LATER}")
         shard_config = ShardConfig(
             compact_portion_threshold=self.config
             .compact_portion_threshold,
@@ -416,13 +436,22 @@ class Cluster:
             scan_block_rows=self.config.scan_block_rows,
         )
         name = desc.path.strip("/")
-        t = ShardedTable(
-            name, desc.schema, self.store, self.coordinator,
-            n_shards=desc.n_shards, pk_column=desc.primary_key[0],
-            ttl_column=desc.ttl_column, dicts=self.dicts, boot=boot,
-            config=shard_config, upsert=desc.upsert,
-            gen=desc.shard_gen, device=self.device,
-        )
+        if desc.store == "row":
+            t = RowTable(
+                name, desc.schema, self.store, self.coordinator,
+                n_shards=desc.n_shards,
+                pk_columns=tuple(desc.primary_key),
+                ttl_column=desc.ttl_column, dicts=self.dicts, boot=boot,
+                gen=desc.shard_gen,
+            )
+        else:
+            t = ShardedTable(
+                name, desc.schema, self.store, self.coordinator,
+                n_shards=desc.n_shards, pk_column=desc.primary_key[0],
+                ttl_column=desc.ttl_column, dicts=self.dicts, boot=boot,
+                config=shard_config, upsert=desc.upsert,
+                gen=desc.shard_gen, device=self.device,
+            )
         t.alter_schema(desc.schema, desc.schema_version, desc.column_added)
         # dict ids must be durable BEFORE any shard WAL references them:
         # a crash between the two would otherwise leave dangling ids
@@ -461,14 +490,22 @@ class Cluster:
         if store_kind not in ("column", "row"):
             raise PlanError(f"WITH store must be column|row, "
                             f"got {store_kind!r}")
-        if store_kind == "row":
-            raise PlanError(f"WITH (store = row): {ROW_STORE_LATER}")
+        if store_kind == "row" and not self.flags.enable_row_tables:
+            raise PlanError("row tables are disabled by feature flag")
         if "ttl_column" in opts and opts["ttl_column"] not in schema:
             raise PlanError(f"ttl_column {opts['ttl_column']!r} not in "
                             f"schema")
         upsert = opts.get("upsert", "off") in ("on", "true", "1")
-        if opts.get("changefeed", "off") in ("on", "true", "1"):
+        if upsert and store_kind != "column":
+            raise PlanError("upsert semantics apply to column tables"
+                            " (row tables always upsert by PK)")
+        changefeed = opts.get("changefeed", "off") in ("on", "true", "1")
+        if changefeed and store_kind != "row":
             raise PlanError("changefeed requires a row-store table")
+        if changefeed and not self.flags.enable_changefeeds:
+            raise PlanError("changefeeds are disabled by feature flag")
+        if changefeed:
+            raise PlanError(f"WITH (changefeed = on): {CHANGEFEEDS_LATER}")
         desc = TableDescription(
             path="/" + stmt.table,
             schema=schema,
@@ -531,13 +568,22 @@ class Cluster:
             raise PlanError(f"unknown table {stmt.table}")
         add = [dtypes.Field(n, _parse_type(ty), True)
                for n, ty in stmt.add_columns]
+        row_strip = stmt.drop_columns and hasattr(t, "post_boot_sweep")
+        if row_strip:
+            # marker precedes the schema commit: a crash anywhere before
+            # clear_strip re-runs the strip on next boot
+            self.scheme.mark_strip("/" + stmt.table)
         try:
             desc = self.scheme.alter_table(
                 "/" + stmt.table, add_columns=add,
                 drop_columns=list(stmt.drop_columns))
         except SchemeError as e:
+            if row_strip:
+                self.scheme.clear_strip("/" + stmt.table)
             raise PlanError(str(e)) from e
         t.alter_schema(desc.schema, desc.schema_version, desc.column_added)
+        if row_strip:
+            self.scheme.clear_strip("/" + stmt.table)
         self._invalidate_plans()
 
     def run_background(self) -> dict:
@@ -550,7 +596,10 @@ class Cluster:
         stats = {"compacted": 0, "splits": 0, "merges": 0}
         for t in self.tables.values():
             for s in t.shards:
-                s.config.compact_portion_threshold = threshold
+                if hasattr(s, "config"):
+                    s.config.compact_portion_threshold = threshold
+            # a row table compacts its shards' version chains here; its
+            # TTL eviction needs a cutoff, which this pass does not give
             stats["compacted"] += t.run_background().get("compacted", 0)
         # statistics refresh rides the maintenance cadence; incremental
         # — only never-seen portions cost chunk reads. A failed refresh
@@ -739,7 +788,7 @@ class Cluster:
             rows = st.get("rows")
             if t is None or rows is None:
                 continue
-            if t.upsert:
+            if getattr(t, "upsert", False):
                 # portion-metadata counts include superseded versions on
                 # upsert tables: acting on them would split on churn
                 continue
@@ -757,12 +806,200 @@ class Cluster:
                 self.reshard_table(name, max(n // 2, floor))
                 stats["merges"] += 1
 
+    # ---- row-store DML (UPDATE / DELETE) ----
+
+    def _row_table(self, name: str):
+        from ydb_tpu_torch.datashard.table import RowTable
+
+        t = self.tables.get(name)
+        if t is None:
+            raise PlanError(f"unknown table {name}")
+        if not isinstance(t, RowTable):
+            raise PlanError(
+                f"{name} is a column-store table; UPDATE/DELETE need a "
+                f"row table (CREATE TABLE ... WITH (store = row))")
+        return t
+
+    @_host_ok("row DML readback: plans an uncached derived SELECT and"
+              " fetches matching rows to host — the row store operates"
+              " on host rows by design")
+    def _select_rows(self, table, extra_items, where, snap):
+        """Run SELECT pk..., extra... FROM table WHERE ... through the
+        normal plan/execute path at the given snapshot."""
+        items = [ast.SelectItem(ast.Name((c,)), f"__pk_{i}")
+                 for i, c in enumerate(table.pk_columns)]
+        items += extra_items
+        sel = ast.Select(
+            items=tuple(items),
+            from_=ast.TableRef(table.name, None),
+            where=where, group_by=(), having=None, order_by=(),
+            limit=None,
+        )
+        p = plan_select(sel, self.catalog())
+        db = self.snapshot_db(snap)
+        keys = _pinned_keys(table, where)
+        if keys is not None:
+            # the WHERE pins the key: only those rows can match, so the
+            # statement reads them by point reads instead of a walk of
+            # every row of the table (same rows, same order)
+            db.sources[table.name] = table.source_of_keys(keys, snap)
+        out = to_host(execute_plan(p, db))
+        n = out.num_rows
+        keys = [
+            tuple(int(out.column(f"__pk_{i}")[r])
+                  for i in range(len(table.pk_columns)))
+            for r in range(n)
+        ]
+        return out, keys
+
+    def update(self, stmt: ast.Update) -> TxResult:
+        t = self._row_table(stmt.table)
+        for name, _ in stmt.sets:
+            if name not in t.schema:
+                raise PlanError(f"no column {name}")
+            if name in t.pk_columns:
+                raise PlanError(f"cannot UPDATE key column {name}")
+        # optimistic read-modify-write: lock, read at snapshot, write
+        # under the lock; a conflicting commit in between breaks the
+        # lock, prepare aborts the 2PC, and the whole RMW retries
+        for _attempt in range(self.icb.get("rmw_retries")):
+            locks = t.lock_all_shards()
+            try:
+                res = self._update_once(t, stmt, locks)
+            finally:
+                t.release_locks(locks)
+            if res.committed or not (res.error or "").startswith(
+                    "prepare"):
+                return res
+        raise PlanError(
+            f"UPDATE {stmt.table} kept aborting on concurrent writes")
+
+    def _update_once(self, t, stmt: ast.Update,
+                     locks: dict[int, int]) -> TxResult:
+        snap = self.coordinator.read_snapshot()
+        ops = self.update_ops(t, stmt, snap)
+        if not ops:
+            return TxResult(0, snap, True)
+        return t._commit_ops(ops, lock_ids=locks)
+
+    @_host_ok("row DML read-modify-write: per-row SET application and"
+              " dictionary re-encoding are host row work by design")
+    def _update_rows(self, t, stmt: ast.Update, snap: int):
+        """Rows with the SET effects applied, read at ``snap``."""
+        # constant SET values evaluate directly (string literals cannot
+        # ride the device plan — they'd be bare dict ids); computed
+        # expressions run through the normal SELECT path
+        const_sets: dict[str, tuple] = {}
+        copy_sets: list[tuple[str, str]] = []  # target <- source column
+        computed: list[tuple[str, ast.Expr]] = []
+        for name, e in stmt.sets:
+            lit = e
+            f = t.schema.field(name)
+            if isinstance(lit, (ast.Literal,)) or (
+                    isinstance(lit, ast.UnOp) and lit.op == "neg" and
+                    isinstance(lit.operand, ast.Literal)):
+                v, ok = _literal_value(lit, f.type)
+                if ok and f.type.is_string:
+                    v = int(self.dicts.for_column(name).add(v))
+                const_sets[name] = (v, ok)
+            elif f.type.is_string:
+                # dict ids are per-column: a cross-column copy must
+                # decode in the source dictionary and re-encode in the
+                # target's — raw id passthrough would alias wrong values
+                if isinstance(e, ast.Name) and e.column in t.schema and \
+                        t.schema.field(e.column).type.is_string:
+                    copy_sets.append((name, e.column))
+                else:
+                    raise PlanError(
+                        f"UPDATE SET {name} = <expr>: string columns "
+                        f"support literals or another string column")
+            else:
+                computed.append((name, e))
+        extra = [ast.SelectItem(e, f"__set_{i}")
+                 for i, (_n, e) in enumerate(computed)]
+        out, keys = self._select_rows(t, extra, stmt.where, snap)
+        current = t.read_rows(keys, snap)  # one batched read per shard
+        rows = []
+        for r, key in enumerate(keys):
+            row = current.get(key)
+            if row is None:
+                continue
+            row = dict(row)
+            for name, (v, ok) in const_sets.items():
+                row[name] = v if ok else None
+            for name, src in copy_sets:
+                sid = row.get(src)
+                if sid is None:
+                    row[name] = None
+                else:
+                    value = self.dicts[src].decode(
+                        np.asarray([sid], dtype=np.int32))[0]
+                    row[name] = int(self.dicts.for_column(name).add(value))
+            for i, (name, _e) in enumerate(computed):
+                col = out.column(f"__set_{i}")
+                ok = bool(out.validity(f"__set_{i}")[r])
+                if not ok:
+                    row[name] = None
+                else:
+                    row[name] = _coerce(
+                        col[r], out.schema.field(f"__set_{i}").type,
+                        t.schema.field(name).type)
+            rows.append(row)
+        return rows
+
+    def update_ops(self, t, stmt: ast.Update, snap: int):
+        """The UPDATE's row effects as RowOps, uncommitted (the
+        interactive-transaction buffering seam)."""
+        from ydb_tpu_torch.datashard.shard import RowOp
+
+        rows = self._update_rows(t, stmt, snap)
+        return [RowOp(t._key_of(r), r) for r in rows]
+
+    def delete_ops(self, t, stmt: ast.Delete, snap: int):
+        from ydb_tpu_torch.datashard.shard import RowOp
+
+        _out, keys = self._select_rows(t, [], stmt.where, snap)
+        return [RowOp(tuple(k), None) for k in keys]
+
+    def delete(self, stmt: ast.Delete) -> TxResult:
+        t = self._row_table(stmt.table)
+        for _attempt in range(self.icb.get("rmw_retries")):
+            locks = t.lock_all_shards()
+            try:
+                res = self._delete_once(t, stmt, locks)
+            finally:
+                t.release_locks(locks)
+            if res.committed or not (res.error or "").startswith(
+                    "prepare"):
+                return res
+        raise PlanError(
+            f"DELETE {stmt.table} kept aborting on concurrent writes")
+
+    def _delete_once(self, t, stmt: ast.Delete,
+                     locks: dict[int, int]) -> TxResult:
+        snap = self.coordinator.read_snapshot()
+        ops = self.delete_ops(t, stmt, snap)
+        if not ops:
+            return TxResult(0, snap, True)
+        return t._commit_ops(ops, lock_ids=locks)
+
     def insert(self, stmt: ast.Insert) -> TxResult:
         t, arrays, val = self._insert_arrays(stmt)
         res = t.insert(arrays, val)  # journals dict growth via pre_commit
         # new dictionary entries may invalidate cached plan aux tables
         self._invalidate_plans()
         return res
+
+    def insert_ops(self, stmt: ast.Insert):
+        """The INSERT's effects as (table, RowOps), uncommitted (the
+        interactive-transaction buffering seam; row tables only)."""
+        t, arrays, val = self._insert_arrays(stmt)
+        if not hasattr(t, "insert_ops"):
+            raise PlanError(
+                f"interactive transactions support row tables; "
+                f"{stmt.table} is a column table")
+        self._invalidate_plans()
+        return t, t.insert_ops(arrays, val)
 
     def _insert_arrays(self, stmt: ast.Insert):
         t = self.tables.get(stmt.table)
@@ -794,10 +1031,10 @@ class Cluster:
         return t, arrays, val
 
     def reshard_table(self, name: str, n_shards: int) -> int:
-        """Split/merge a column table to ``n_shards`` shards: stream-copy
-        into a new shard generation, journal the cutover in the scheme
-        (the durable commit point), then GC the old generation. Returns
-        the new generation."""
+        """Split/merge a table (column OR row store) to ``n_shards``
+        shards: stream-copy into a new shard generation, journal the
+        cutover in the scheme (the durable commit point), then GC the
+        old generation. Returns the new generation."""
         t = self.tables.get(name)
         if t is None:
             raise PlanError(f"unknown table {name}")
@@ -829,7 +1066,8 @@ class Cluster:
         pks = dict(self.primary_keys)
         # statistics feed for CBO-lite join ordering (cheap: portion
         # metadata only, no scans)
-        counts = {n: st["rows"] for n, st in table_stats(self).items()}
+        counts = {n: st["rows"] for n, st in table_stats(self).items()
+                  if st["rows"] is not None}
         return Catalog(schemas=schemas, primary_keys=pks,
                        dicts=self.dicts, row_counts=counts,
                        table_stats=self.stats.all_stats(),
@@ -862,12 +1100,20 @@ class Cluster:
         self._invalidate_plans()
 
     def snapshot_db(self, snap: int | None = None) -> Database:
-        """The Database a statement reads: every table's shard streams
-        at one snapshot, on the cluster's device."""
+        """The Database a statement reads: every column table's shard
+        streams at one snapshot, on the cluster's device, and every row
+        table's ``source_at`` at the same snapshot, built when the
+        statement first reads it (``_RowSources``)."""
+        from ydb_tpu_torch.datashard.table import RowTable
+
         snap = self.coordinator.read_snapshot() if snap is None else snap
         self._prune_scan_cache()
-        sources = {name: _merge_shard_sources(t, snap)
-                   for name, t in self.tables.items()}
+        sources = _RowSources(snap)
+        for name, t in self.tables.items():
+            if isinstance(t, RowTable):
+                sources.row_tables[name] = t
+            else:
+                sources[name] = _merge_shard_sources(t, snap)
         db = Database(sources=sources, dicts=self.dicts,
                       device=self.device)
         db.block_cache = self.scan_block_cache
@@ -900,6 +1146,8 @@ class Cluster:
         live: dict[str, set] = {}
         for t in self.tables.values():
             for s in t.shards:
+                if not hasattr(s, "portions"):
+                    continue  # row shards cache nothing here
                 with s._meta_lock:
                     pids = set(s.portions)
                 live.setdefault(s.shard_id, set()).update(pids)
@@ -982,6 +1230,43 @@ class Cluster:
         return Session(self)
 
 
+class _RowSources(dict):
+    """A statement's sources: column tables' streams set eagerly, a row
+    table's ``source_at(snap)`` built on its first lookup and kept for
+    the rest of the statement, so a statement that reads no row table
+    walks none (the reference's mesh path, ``_Lazy`` in
+    ``ydb_tpu/kqp/session.py``). ``get`` and ``in`` build too: fusion
+    and batching probe with ``sources.get``, which a plain dict answers
+    without ``__missing__``. The lock keeps two workers of one statement
+    from building the same table twice."""
+
+    def __init__(self, snap: int):
+        super().__init__()
+        self.snap = snap
+        self.row_tables: dict = {}
+        self._build_lock = threading.Lock()
+
+    def __missing__(self, key):
+        t = self.row_tables.get(key)
+        if t is None:
+            raise KeyError(key)
+        with self._build_lock:
+            if dict.__contains__(self, key):
+                return dict.__getitem__(self, key)
+            src = t.source_at(self.snap)
+            self[key] = src
+            return src
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def __contains__(self, key):
+        return dict.__contains__(self, key) or key in self.row_tables
+
+
 def _merge_shard_sources(t: ShardedTable, snap: int):
     """Streaming scan source over all shards at a snapshot: SELECTs read
     through the portion/blob/merge path (engine.reader), never a
@@ -990,6 +1275,74 @@ def _merge_shard_sources(t: ShardedTable, snap: int):
 
     return MultiShardStreamSource(t.shards, t.schema, t.dicts, snap,
                                   device=t.device)
+
+
+_INT_KINDS = frozenset(("int8", "int16", "int32", "int64", "uint8",
+                        "uint16", "uint32", "uint64"))
+
+
+def _pinned_keys(table, where) -> list | None:
+    """The primary keys a row-DML WHERE pins, or None: a top-level
+    conjunct ``pk = <int>`` or ``pk IN (<int>, ...)`` on a table whose
+    key is one integer column. Rows with other keys cannot match, so
+    reading just these rows answers the derived SELECT exactly."""
+    if where is None or len(table.pk_columns) != 1:
+        return None
+    pk = table.pk_columns[0]
+    if table.schema.field(pk).type.kind.value not in _INT_KINDS:
+        return None
+
+    def is_pk(e) -> bool:
+        return isinstance(e, ast.Name) and e.column == pk and (
+            len(e.parts) == 1 or e.parts[-2] == table.name)
+
+    def as_int(e):
+        if isinstance(e, ast.Literal) and e.kind == "int" \
+                and -(1 << 63) <= int(e.value) < (1 << 63):
+            return int(e.value)
+        if isinstance(e, ast.UnOp) and e.op == "neg":
+            v = as_int(e.operand)
+            return None if v is None else -v
+        return None
+
+    stack, pinned = [where], None
+    while stack:
+        e = stack.pop()
+        keys = None
+        if isinstance(e, ast.BinOp) and e.op == "and":
+            stack += [e.left, e.right]
+        elif isinstance(e, ast.BinOp) and e.op == "eq":
+            for a, b in ((e.left, e.right), (e.right, e.left)):
+                if is_pk(a) and as_int(b) is not None:
+                    keys = {as_int(b)}
+        elif isinstance(e, ast.InList) and not e.negated and \
+                is_pk(e.expr):
+            vals = [as_int(i) for i in e.items]
+            if all(v is not None for v in vals):
+                keys = set(vals)
+        if keys is not None:
+            pinned = keys if pinned is None else pinned & keys
+    return None if pinned is None else [(k,) for k in sorted(pinned)]
+
+
+def _coerce(value, from_t: dtypes.LogicalType, to_t: dtypes.LogicalType):
+    """Physical value conversion for UPDATE SET results."""
+    v = value
+    if to_t.is_decimal:
+        if from_t.is_decimal:
+            return int(v) * 10 ** (to_t.scale - from_t.scale) \
+                if to_t.scale >= from_t.scale else \
+                int(int(v) // 10 ** (from_t.scale - to_t.scale))
+        if from_t.is_floating:
+            return int(round(float(v) * 10 ** to_t.scale))
+        return int(v) * 10 ** to_t.scale
+    if to_t.is_floating:
+        if from_t.is_decimal:
+            return float(v) / 10 ** from_t.scale
+        return float(v)
+    if to_t.is_string:
+        return int(v)  # dict id flows through unchanged
+    return int(v)
 
 
 def _literal_value(e: ast.Expr, t: dtypes.LogicalType):
@@ -1028,9 +1381,13 @@ class Session:
     """One client session (kqp_session_actor analog).
 
     BEGIN / COMMIT / ROLLBACK: statements inside the transaction read
-    the BEGIN snapshot (repeatable read). Buffered writes need the row
-    store, so INSERT inside a transaction raises ``PlanError`` (as the
-    reference does for column tables)."""
+    the BEGIN snapshot (repeatable read), scalar subqueries included.
+    INSERT, UPDATE and DELETE of row tables buffer their effects under
+    full-range optimistic locks on the tables they touch; COMMIT
+    proposes every table's effects and commits them as ONE volatile
+    distributed transaction, which a conflicting commit aborts. A
+    column table inside a transaction raises ``PlanError``, as in the
+    reference."""
 
     cluster: Cluster
     _tx: dict | None = None
@@ -1396,22 +1753,20 @@ class Session:
         if isinstance(planned, ast.Begin):
             if self._tx is not None:
                 raise PlanError("a transaction is already open")
-            self._tx = {"snap": self.cluster.coordinator.read_snapshot()}
+            self._tx = {
+                "snap": self.cluster.coordinator.read_snapshot(),
+                "locks": {},   # table name -> {shard idx: lock id}
+                "ops": {},     # table name -> (table, [RowOp]) ordered
+            }
             return None
         if isinstance(planned, ast.Commit):
-            tx = self._tx
-            if tx is None:
-                raise PlanError("no open transaction")
-            self._tx = None
-            return TxResult(0, tx["snap"], True)
+            return self._tx_commit()
         if isinstance(planned, ast.Rollback):
-            self._tx = None
+            self._tx_release()
             return None
         if isinstance(planned, (ast.CreateSequence, ast.DropSequence)):
+            self._no_tx("DDL")
             raise PlanError(f"SEQUENCE: {SEQUENCES_LATER}")
-        if isinstance(planned, (ast.Update, ast.Delete)):
-            raise PlanError(f"{type(planned).__name__.upper()} needs a row "
-                            f"table: {ROW_STORE_LATER}")
         if isinstance(planned, ast.CreateTable):
             self._no_tx("DDL")
             self._check_access("ddl", "/" + planned.table)
@@ -1430,10 +1785,30 @@ class Session:
         if isinstance(planned, ast.Insert):
             self._check_access("write", "/" + planned.table)
             if self._tx is not None:
-                raise PlanError(
-                    f"interactive transactions support row tables; "
-                    f"{planned.table} is a column table")
+                t, ops = self.cluster.insert_ops(planned)
+                self._tx_buffer(planned.table, t, ops)
+                return None
             return self.cluster.insert(planned)
+        if isinstance(planned, ast.Update):
+            self._check_access("write", "/" + planned.table)
+            if self._tx is not None:
+                t = self.cluster._row_table(planned.table)
+                self._tx_lock(planned.table, t)
+                ops = self.cluster.update_ops(t, planned,
+                                              self._tx["snap"])
+                self._tx_buffer(planned.table, t, ops)
+                return None
+            return self.cluster.update(planned)
+        if isinstance(planned, ast.Delete):
+            self._check_access("write", "/" + planned.table)
+            if self._tx is not None:
+                t = self.cluster._row_table(planned.table)
+                self._tx_lock(planned.table, t)
+                ops = self.cluster.delete_ops(t, planned,
+                                              self._tx["snap"])
+                self._tx_buffer(planned.table, t, ops)
+                return None
+            return self.cluster.delete(planned)
         if planned[0] == "explain":
             from ydb_tpu_torch.plan.nodes import format_plan
 
@@ -1535,8 +1910,70 @@ class Session:
             profile.memsan = msnap
         return format_plan_analyzed(p, profile)
 
+    # -- interactive transaction plumbing --
+
     def _no_tx(self, what: str) -> None:
         if self._tx is not None:
-            self._tx = None
+            self._tx_release()
             raise PlanError(
                 f"{what} inside a transaction aborts it (unsupported)")
+
+    def _tx_lock(self, name: str, t) -> None:
+        if name in self._tx["locks"]:
+            return
+        locks = t.lock_all_shards()
+        # the lock starts protecting NOW, but the tx reads the BEGIN
+        # snapshot: a commit that landed in between would be silently
+        # clobbered by full-row buffered writes (lost update). Close
+        # the window like the statement path's lock-before-read does:
+        # abort if the table moved past the snapshot before the lock.
+        if any(shard.last_step > self._tx["snap"]
+               for shard in t.shards):
+            t.release_locks(locks)
+            self._tx_release()
+            raise PlanError(
+                f"transaction aborted: {name} changed after BEGIN "
+                "(retry the transaction)")
+        self._tx["locks"][name] = locks
+
+    def _tx_buffer(self, name: str, t, ops) -> None:
+        self._tx_lock(name, t)
+        entry = self._tx["ops"].setdefault(name, (t, []))
+        entry[1].extend(ops)
+
+    def _tx_release(self) -> None:
+        tx, self._tx = self._tx, None
+        if tx is None:
+            return
+        for name, locks in tx["locks"].items():
+            table = self.cluster.tables.get(name)
+            if table is not None:
+                table.release_locks(locks)
+
+    def _tx_commit(self):
+        tx = self._tx
+        if tx is None:
+            raise PlanError("no open transaction")
+        try:
+            participants, prepare_args = [], []
+            try:
+                for name, (t, ops) in tx["ops"].items():
+                    p, a = t.propose_ops(ops,
+                                         lock_ids=tx["locks"][name])
+                    participants.extend(p)
+                    prepare_args.extend(a)
+            except Exception:
+                # a later table's propose failed: earlier tables'
+                # durably staged writes must not leak in pending
+                for p, a in zip(participants, prepare_args):
+                    try:
+                        p.abort(a)
+                    except Exception:  # noqa: BLE001 - best effort
+                        pass
+                raise
+            if not participants:
+                return TxResult(0, tx["snap"], True)
+            return self.cluster.coordinator.commit_volatile(
+                participants, prepare_args)
+        finally:
+            self._tx_release()

@@ -10,9 +10,11 @@ module walks a Cluster's live tablets, tags each with its type
 and folds them into per-type aggregates for the viewer and sys views.
 
 The port's own copy of ``ydb_tpu/obs/tablet_counters.py``, over the
-port's ``Cluster`` (``kqp/session.py``). Its walk also visits the row
-shards and topic partitions the reference has; the port's cluster has
-none yet (ROADMAP.md queue A items 8 and 11), so they add nothing.
+port's ``Cluster`` (``kqp/session.py``): column shards, row shards
+(``ds/``; a secondary index's shards are not walked, as in the
+reference), the scheme tablet and the coordinator. Its walk also visits
+topic partitions, which the port's cluster has none of until topics come
+(ROADMAP.md queue A item 11).
 """
 
 from __future__ import annotations
