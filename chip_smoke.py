@@ -59,7 +59,7 @@ Phases, in order; any failure exits non-zero before the final line:
    and checked: its result must equal phase 5's walk result, and Q3, Q5,
    Q13 and Q18 also equal numpy. The warm runs (three, one where the
    first run took over ``DQ_SLOW_FIRST_S``) and the profiled run are
-   made while the script stays under ``DQ_EXTRAS_BUDGET_S`` (350 s), so the run
+   made while the script stays under ``DQ_EXTRAS_BUDGET_S`` (230 s), so the run
    ends inside its time limit; ``--dq-warm N`` makes them for every
    query. Phases 5 and 6 pin whole-plan fusion off
    (``plan_fuse.FUSE_FORCE = False``): at sf 0.01 it would answer every
@@ -269,6 +269,41 @@ Phases, in order; any failure exits non-zero before the final line:
    ``{"row_store": ...}`` line (load rate, first and warm ms and
    ``source_at``'s share of each, commits, aborts and
    retries, launches, reboot). Under ``ROW_STORE_BUDGET_S`` (240 s).
+14. Monitoring, coordination and load (``obs/sysview.py``,
+   ``obs/viewer.py``, ``obs/loadtest.py``, ``tablet/kesus.py``,
+   ``runtime/quoter.py``); it runs after phase 12, on phase 10's store.
+   A Cluster booted from it behind pgwire, with a ``Viewer`` on port 0.
+   (1) Launch counters zeroed; Q1, Q6, q3, q33 and q36 over pgwire, then
+   q33 and q36 on the per-aggregate lowering with fusion off, each equal
+   to phase 10's answer; both kernels must launch (``monitor_launches``),
+   then every kernel call of q33 and q36 is held against its plain version
+   (``serving_kernels``; not counted). (2) ``MONITOR_CLIENTS``
+   connections loop over q33 and q3 for ``MONITOR_LOAD_S`` (every answer
+   equal to phase 10's) while a ninth polls ``sys_active_queries`` over
+   pgwire (each poll sees its own statement) and
+   ``/viewer/json/timeline``; after the load the view holds exactly the
+   statement that reads it. (3) Each of the 15 sys views read through
+   ``/viewer/json/sysview`` and then with ``SELECT *`` over pgwire: equal
+   rows but for the memory values of ``sys_memory`` and
+   ``sys_device_memory`` (the pgwire read of ``sys_active_queries`` also
+   holds its own statement); its build, endpoint and pgwire milliseconds.
+   Per table, ``sys_partition_stats`` rows sum to ``sys_table_stats``'s
+   rows and to ``COUNT(*)``, for TPC-H the rows phase 10 loaded;
+   ``sys_top_queries`` rank 1 at least as slow as every row of
+   ``sys_query_log``; memsan armed for one q33, the ``<global>`` row of
+   ``sys_device_memory`` has live <= peak <= ``max_memory_allocated``;
+   health GOOD; ``/counters/prometheus`` parses. (4) ``LoadService``
+   (seed ``LOAD_SEED``): ``kv_upsert``, ``select`` and ``storage_put`` at
+   ``LOAD_REQUESTS`` each, 0 errors, p50 <= p90 <= p99. (5) ``CREATE
+   SEQUENCE`` over pgwire; ``SEQ_CLIENTS`` connections each INSERT
+   ``SEQ_ROWS`` rows with ``nextval`` into a row table, all distinct; a
+   Cluster booted again from the directory hands out a higher value;
+   after ``DROP SEQUENCE`` ``nextval`` raises. (6) ``Cluster.quoter`` at
+   ``QUOTER_BURST`` / ``QUOTER_RATE`` on ``kqp/requests``:
+   ``QUOTER_STATEMENTS`` statements back to back, the admitted at most the
+   burst plus rate x elapsed plus 1, the rest ``ThrottledError`` and
+   counted under ``kind="throttled"``. One ``{"monitor": ...}`` line.
+   Under ``MONITOR_BUDGET_S`` (60 s).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -1115,7 +1150,7 @@ DQ_SLOW_FIRST_S = 2.0
 #: the DQ phase's warm and profiled runs (beyond each query's first,
 #: checked run) are made only while the script's clock, with them, stays
 #: under this: the whole run then ends well inside its time limit
-DQ_EXTRAS_BUDGET_S = 350.0
+DQ_EXTRAS_BUDGET_S = 230.0
 
 #: the DQ layers that ``dq_instruments(timed=True)`` times, by the port
 #: function that does each layer's work (module or class, attribute)
@@ -2955,10 +2990,10 @@ def serving_batched(cluster, srv, cb) -> dict:
     real_snapshot_db = cluster.snapshot_db
     real_execute = type(cluster.session()).execute
 
-    def snapshot_db(snap=None):
+    def snapshot_db(snap=None, **kw):
         snap = cluster.coordinator.read_snapshot() if snap is None else snap
         tls.snap = snap
-        return real_snapshot_db(snap)
+        return real_snapshot_db(snap, **kw)
 
     def execute(sess, sql, *a, **kw):
         tls.snap = None
@@ -3222,6 +3257,8 @@ def serving_phase(dev, ck, sf: float = SERVING_SF,
             os.path.join(root, "main"), dev)
         ck.reset_launches()
         out["tpch"], tp = serving_tpch(cluster, srv, sf, dev)
+        out["tpch_table_rows"] = {t: len(next(iter(c.values())))
+                                  for t, c in tp.tables.items()}
         cb = clickbench.ClickBenchData(rows=hits_rows, seed=42)
         out["clickbench"] = serving_clickbench(cluster, srv, cb)
         out["batched"] = serving_batched(cluster, srv, cb)
@@ -4108,6 +4145,449 @@ def chaos_phase(dev, ck, storage_root, serving_root, answers, want) -> dict:
     return out
 
 
+# ---------------- phase 14: monitoring, coordination and load ----------------
+
+#: phase 14's own time limit, seconds of script time
+MONITOR_BUDGET_S = 60.0
+#: seconds of the 8-connection load under which the ninth polls
+MONITOR_LOAD_S = 10.0
+MONITOR_CLIENTS = 8
+#: requests of each LoadService kind
+LOAD_REQUESTS = 200
+LOAD_SEED = 7
+#: connections inserting with nextval, and rows each
+SEQ_CLIENTS = 4
+SEQ_ROWS = 50
+#: the quoter's kqp/requests bucket, and statements sent back to back
+QUOTER_BURST = 5.0
+QUOTER_RATE = 1.0
+QUOTER_STATEMENTS = 60
+#: per view, the columns whose values move between two back-to-back reads
+#: (process and device memory); the rest must be equal
+MONITOR_VOLATILE = {
+    "sys_memory": {"value"},
+    "sys_device_memory": {"live_bytes", "peak_bytes", "charges",
+                          "releases", "evictions"},
+}
+
+
+def http_json(port, path):
+    """GET ``path`` off the viewer: (parsed JSON, milliseconds)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        body = r.read()
+    return json.loads(body), (time.perf_counter() - t0) * 1e3
+
+
+def monitor_load(srv, viewer, want) -> dict:
+    """Step 3: ``MONITOR_CLIENTS`` connections loop over q33 and q3 for
+    ``MONITOR_LOAD_S``, every answer equal to phase 10's; meanwhile a
+    ninth polls ``sys_active_queries`` over pgwire and the viewer's
+    timeline. Each SQL poll must see its own statement; after the load
+    the view holds exactly the statement that reads it."""
+    import threading
+
+    from ydb_tpu_torch.workload import clickbench
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    work = (("q33", clickbench.QUERIES["q33"]), ("q3", TPCH["q3"]))
+    poll = "SELECT query_text, stage FROM sys_active_queries"
+    stop = threading.Event()
+    done, fail = [], []
+
+    def loop(i):
+        try:
+            cl = PgClient(srv.port)
+            n = 0
+            while not stop.is_set():
+                name, sql = work[(i + n) % 2]
+                got, cols = cl.ok(sql)
+                same_wire(got, want[name], cols, f"{name} under load",
+                          rtol=1e-12)
+                n += 1
+            cl.close()
+            done.append(n)
+        except Exception as e:  # noqa: BLE001 - raised below
+            fail.append(e)
+
+    threads = [threading.Thread(target=loop, args=(i,))
+               for i in range(MONITOR_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    pc = PgClient(srv.port)
+    polls, seen, tl_seen, poll_ms, tl_ms = 0, [], [], [], []
+    while time.perf_counter() - t0 < MONITOR_LOAD_S and not fail:
+        ts = time.perf_counter()
+        rows, _cols = pc.ok(poll)
+        poll_ms.append((time.perf_counter() - ts) * 1e3)
+        texts = [r[0].decode() for r in rows]
+        assert poll in texts, texts
+        seen.append(len(rows))
+        tl, ms = http_json(viewer.port, "/viewer/json/timeline")
+        tl_ms.append(ms)
+        assert isinstance(tl["active_queries"], list), tl
+        tl_seen.append(len(tl["active_queries"]))
+        polls += 1
+    stop.set()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if fail:
+        raise fail[0]
+    rows, _ = pc.ok(poll)
+    assert [r[0].decode() for r in rows] == [poll], rows
+    pc.close()
+    out = {"seconds": wall, "statements": sum(done), "polls": polls,
+           "max_active_seen": max(seen), "max_timeline_active": max(tl_seen),
+           "poll_ms_median": statistics.median(poll_ms),
+           "timeline_ms_median": statistics.median(tl_ms),
+           "statements_per_s": sum(done) / wall}
+    emit({"monitor_load": out})
+    return out
+
+
+def view_rows_equal(name, schema, wire, cols, http) -> None:
+    """A sys view read over pgwire (text DataRows) and through the viewer
+    (JSON rows): equal in every column but ``MONITOR_VOLATILE``'s."""
+    from ydb_tpu_torch.api.pgwire import _format_value
+
+    skip = MONITOR_VOLATILE.get(name, set())
+    names = [c for c, _oid in cols]
+    assert names == list(schema.names), (name, names)
+    assert len(wire) == len(http), (name, len(wire), len(http))
+    for r, (w, h) in enumerate(zip(wire, http)):
+        for f, wv in zip(schema.fields, w):
+            if f.name in skip:
+                continue
+            hv = h[f.name]
+            want = (hv.encode() if f.type.is_string
+                    else _format_value(f.type.kind, f.type.scale, hv))
+            assert wv == want, (name, r, f.name, wv, hv)
+
+
+def monitor_views(cluster, srv, viewer, dev, tables, tpch_rows) -> dict:
+    """Step 4: every sys view through the viewer and then over pgwire
+    (nothing runs between the two reads), equal but for the volatile
+    columns; ``sys_active_queries`` over pgwire holds its own statement,
+    which the viewer's read (no statement) does not. Then the row counts
+    (each TPC-H table's equal to ``tpch_rows``, the rows phase 10
+    generated), the top query, device memory under memsan, health and
+    the Prometheus page."""
+    from ydb_tpu_torch.analysis import memsan
+    from ydb_tpu_torch.obs import sysview
+    from ydb_tpu_torch.workload import clickbench
+
+    # promotions that the load started settle first: the resident view's
+    # counters must not move between its two reads
+    for t in cluster.tables.values():
+        for sh in t.shards:
+            if getattr(sh, "resident", None) is not None:
+                sh.resident.drain()
+    cl = PgClient(srv.port)
+    out: dict = {"views": {}}
+
+    def both(name):
+        t0 = time.perf_counter()
+        src = sysview.sys_source(cluster, name)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        http, http_ms = http_json(viewer.port,
+                                  f"/viewer/json/sysview?name={name}")
+        sql = f"SELECT * FROM {name}"
+        t0 = time.perf_counter()
+        wire, cols = cl.ok(sql)
+        wire_ms = (time.perf_counter() - t0) * 1e3
+        if name == "sys_active_queries":
+            mine = [r for r in wire if r[0] == sql.encode()]
+            assert len(mine) == 1, wire
+            wire = [r for r in wire if r[0] != sql.encode()]
+        view_rows_equal(name, sysview.SYS_SCHEMAS[name], wire, cols, http)
+        out["views"][name] = {"rows": len(http), "build_ms": build_ms,
+                              "endpoint_ms": http_ms, "pgwire_ms": wire_ms,
+                              "build_rows": src.num_rows}
+        return http
+
+    views = {name: both(name) for name in sysview.SYS_SCHEMAS
+             if name != "sys_device_memory"}
+    # row counts: partitions, table statistics and COUNT(*) agree
+    parts: dict = collections.Counter()
+    for r in views["sys_partition_stats"]:
+        parts[r["table_name"]] += r["rows"]
+    stats = {r["table_name"]: r["rows"] for r in views["sys_table_stats"]}
+    assert set(parts) == set(stats) == set(tables), (parts, stats)
+    counts = {}
+    for t in tables:
+        rows, _ = cl.ok(f"SELECT count(*) AS n FROM {t}")
+        counts[t] = int(rows[0][0])
+        assert parts[t] == stats[t] == counts[t], (t, parts[t], stats[t],
+                                                   counts[t])
+    for t, n in tpch_rows.items():
+        assert counts[t] == n, (t, counts[t], n)
+    out["row_counts"] = counts
+    out["tpch_rows"] = sum(counts[t] for t in tpch_rows)
+    # the most expensive retained statement is at least as slow as every
+    # statement of the log (both read off the viewer, back to back)
+    top, _ = http_json(viewer.port, "/viewer/json/sysview?name="
+                       "sys_top_queries")
+    qlog, _ = http_json(viewer.port, "/viewer/json/sysview?name="
+                        "sys_query_log")
+    first = next(r for r in top if r["rank"] == 1)
+    assert all(first["seconds"] >= r["seconds"] for r in qlog), first
+    out["top_query"] = {"query_text": first["query_text"][:80],
+                        "seconds": first["seconds"]}
+    # device memory: memsan armed for one q33, the view read both ways;
+    # the allocator's peak is read from a reset before it
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with memsan.activate():
+        cl.ok(clickbench.QUERIES["q33"])
+        dm = both("sys_device_memory")
+        if cuda:
+            torch.cuda.synchronize(dev)
+    allocator_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    glob = next(r for r in dm if r["component"] == "<global>")
+    assert 0 <= glob["live_bytes"] <= glob["peak_bytes"], glob
+    assert not cuda or glob["peak_bytes"] <= allocator_peak, \
+        (glob, allocator_peak)
+    out["device_memory"] = {"components": [r["component"] for r in dm],
+                            "global_live_bytes": glob["live_bytes"],
+                            "global_peak_bytes": glob["peak_bytes"],
+                            "allocator_peak_bytes": allocator_peak}
+    assert http_json(viewer.port, "/viewer/json/healthcheck")[0] == {
+        "status": "GOOD", "issues": []}
+    # the Prometheus page parses: every sample line is name{labels} value
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{viewer.port}/counters/prometheus",
+            timeout=60) as r:
+        prom = r.read().decode()
+    samples = 0
+    for line in prom.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        float(value)
+        assert name and (name.count("{") == name.count("}")), line
+        samples += 1
+    assert samples > 0
+    out["prometheus_samples"] = samples
+    cl.close()
+    emit({"monitor_views": out})
+    return out
+
+
+def monitor_loadservice(cluster) -> dict:
+    """Step 5: the load service's three kinds at ``LOAD_REQUESTS``."""
+    from ydb_tpu_torch.obs.loadtest import LoadService
+
+    svc = LoadService(cluster, seed=LOAD_SEED)
+    out = {}
+    for kind in ("kv_upsert", "select", "storage_put"):
+        r = svc.run(kind, requests=LOAD_REQUESTS)
+        assert r["requests"] == LOAD_REQUESTS and r["errors"] == 0, r
+        assert 0 < r["p50_ms"] <= r["p90_ms"] <= r["p99_ms"], r
+        out[kind] = r
+    emit({"monitor_loadservice": out})
+    return out
+
+
+def monitor_sequences(srv) -> dict:
+    """Step 6, first part: ``CREATE SEQUENCE`` over pgwire, then
+    ``SEQ_CLIENTS`` connections each INSERT ``SEQ_ROWS`` rows with
+    ``nextval`` into a row table; every value distinct."""
+    import threading
+
+    cl = PgClient(srv.port)
+    cl.ok("CREATE SEQUENCE mon_seq START 1 CACHE 16")
+    cl.ok("CREATE TABLE mon_ids (id int64, w int64, PRIMARY KEY (id)) "
+          "WITH (store = row)")
+    fail = []
+
+    def insert(i):
+        try:
+            c = PgClient(srv.port)
+            for j in range(SEQ_ROWS):
+                c.ok(f"INSERT INTO mon_ids VALUES (nextval('mon_seq'), "
+                     f"{i * SEQ_ROWS + j})")
+            c.close()
+        except Exception as e:  # noqa: BLE001 - raised below
+            fail.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=insert, args=(i,))
+               for i in range(SEQ_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    insert_s = time.perf_counter() - t0
+    if fail:
+        raise fail[0]
+    rows, _ = cl.ok("SELECT id FROM mon_ids")
+    cl.close()
+    ids = sorted(int(r[0]) for r in rows)
+    assert len(ids) == len(set(ids)) == SEQ_CLIENTS * SEQ_ROWS, len(ids)
+    return {"values": len(ids), "min": ids[0], "max": ids[-1],
+            "insert_s": insert_s, "inserts_per_s": len(ids) / insert_s}
+
+
+def monitor_sequences_rebooted(srv, seq) -> None:
+    """Step 6, second part, on a Cluster booted again from the same
+    directory: ``nextval`` hands out a value above every one before; after
+    ``DROP SEQUENCE`` it raises the reference's error."""
+    cl = PgClient(srv.port)
+    cl.ok("INSERT INTO mon_ids VALUES (nextval('mon_seq'), -1)")
+    rows, _ = cl.ok("SELECT id FROM mon_ids WHERE w = -1")
+    seq["after_reboot"] = int(rows[0][0])
+    assert seq["after_reboot"] > seq["max"], seq
+    rows, _ = cl.ok("SELECT count(*) AS n FROM mon_ids")
+    assert int(rows[0][0]) == seq["values"] + 1, rows
+    cl.ok("DROP SEQUENCE mon_seq")
+    _rows, _cols, _tags, errors = cl.query(
+        "INSERT INTO mon_ids VALUES (nextval('mon_seq'), -2)")
+    assert len(errors) == 1 and "no sequence mon_seq" in errors[0], errors
+    seq["after_drop"] = errors[0]
+    cl.close()
+    emit({"monitor_sequences": seq})
+
+
+def monitor_quoter(cluster, srv) -> dict:
+    """Step 7: a ``Quoter`` with ``kqp/requests`` at ``QUOTER_BURST`` and
+    ``QUOTER_RATE``; ``QUOTER_STATEMENTS`` statements back to back over
+    one connection. The admitted ones are at most the burst plus the rate
+    times the elapsed seconds, plus one; the rest raise ``ThrottledError``
+    and the ``throttled`` counter counts them."""
+    from ydb_tpu_torch.runtime.quoter import Quoter
+
+    g = cluster.counters.group(kind="throttled").counter("queries")
+    before = g.value
+    q = Quoter()
+    q.configure("kqp/requests", rate=QUOTER_RATE, burst=QUOTER_BURST)
+    cl = PgClient(srv.port)
+    cluster.quoter = q
+    admitted = throttled = 0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(QUOTER_STATEMENTS):
+            _rows, _cols, _tags, errors = cl.query(
+                "SELECT count(*) AS n FROM mon_ids")
+            if errors:
+                assert errors == ["request rate limit exceeded"], errors
+                throttled += 1
+            else:
+                admitted += 1
+        elapsed = time.perf_counter() - t0
+    finally:
+        cluster.quoter = None
+    cl.ok("SELECT count(*) AS n FROM mon_ids")
+    cl.close()
+    limit = QUOTER_BURST + QUOTER_RATE * elapsed + 1
+    out = {"statements": QUOTER_STATEMENTS, "admitted": admitted,
+           "throttled": throttled, "elapsed_s": elapsed, "limit": limit,
+           "throttled_counter": g.value - before}
+    emit({"monitor_quoter": out})
+    assert QUOTER_BURST <= admitted <= limit, out
+    assert throttled > 0 and throttled == g.value - before, out
+    return out
+
+
+def monitor_phase(dev, ck, root, want, tpch_rows) -> dict:
+    """Phase 14 (see the module docstring). ``root`` is phase 10's store,
+    ``want`` the wire rows of ``sanitize_statements()`` there,
+    ``tpch_rows`` the rows of each TPC-H table phase 10 loaded. On the
+    CPU (a rehearsal) no kernel is counted or checked."""
+    from ydb_tpu_torch.obs.viewer import Viewer
+    from ydb_tpu_torch.ssa import kernels
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    cluster, srv, out["boot_s"] = serving_boot(root, dev)
+    viewer = Viewer(cluster, port=0).start()
+    try:
+        tables = sorted(cluster.tables)
+        # step 2: the statements, counted; q33 and q36 also on the
+        # per-aggregate lowering, so both kernels are on the path
+        stmts = sanitize_statements()
+        cl = PgClient(srv.port)
+        if cuda:
+            ck.reset_launches()
+        for name, sql in stmts.items():
+            got, cols = cl.ok(sql)
+            same_wire(got, want[name], cols, name, rtol=1e-12)
+        cluster._invalidate_plans()
+        kernels.FUSED_FORCE = False
+        try:
+            with fusion_force(False):
+                for name in ("q33", "q36"):
+                    got, cols = cl.ok(stmts[name])
+                    same_wire(got, want[name], cols, name + "_peragg")
+        finally:
+            kernels.FUSED_FORCE = None
+            cluster._invalidate_plans()
+        cl.close()
+        if cuda:
+            out["launches"] = dict(ck.LAUNCHES)
+            log(f"monitor launches (q1, q6, q3, q33, q36, then q33 and q36 "
+                f"per-aggregate, over pgwire): {out['launches']}")
+            assert all(v > 0 for v in out["launches"].values()), \
+                out["launches"]
+            out["kernel_check"] = serving_kernels(cluster, ck)
+        # steps 3-5
+        out["load"] = monitor_load(srv, viewer, want)
+        out["views"] = monitor_views(cluster, srv, viewer, dev, tables,
+                                     tpch_rows)
+        out["loadservice"] = monitor_loadservice(cluster)
+        # step 6: the sequence, then a reboot from the same directory
+        seq = monitor_sequences(srv)
+        viewer.stop()
+        viewer = None
+        srv.stop()
+        cluster.stop()
+        cluster = srv = None
+        cluster, srv, seq["boot_s"] = serving_boot(root, dev)
+        monitor_sequences_rebooted(srv, seq)
+        out["sequences"] = seq
+        # step 7
+        out["quoter"] = monitor_quoter(cluster, srv)
+    finally:
+        if viewer is not None:
+            viewer.stop()
+        if srv is not None:
+            srv.stop()
+        if cluster is not None:
+            cluster.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    views = out["views"]["views"]
+    emit({"monitor": {
+        "seconds": out["seconds"], "boot_s": out["boot_s"],
+        "launches": out.get("launches"),
+        "load": out["load"], "tpch_rows": out["views"]["tpch_rows"],
+        "view_build_ms": {k: v["build_ms"] for k, v in views.items()},
+        "view_endpoint_ms": {k: v["endpoint_ms"] for k, v in views.items()},
+        "view_pgwire_ms": {k: v["pgwire_ms"] for k, v in views.items()},
+        "view_rows": {k: v["rows"] for k, v in views.items()},
+        "device_memory": out["views"]["device_memory"],
+        "loadservice": {k: {m: v[m] for m in ("rps", "p50_ms", "p90_ms",
+                                              "p99_ms")}
+                        for k, v in out["loadservice"].items()},
+        "sequences": out["sequences"], "quoter": out["quoter"]}})
+    log(f"monitor phase: {out['seconds']:.1f} s; 15 sys views equal over "
+        f"pgwire and the viewer, {out['views']['tpch_rows']} TPC-H rows "
+        f"counted three ways, health GOOD, load service clean, "
+        f"{out['sequences']['values']} distinct nextval values (reboot "
+        f"{out['sequences']['boot_s']:.2f} s), quoter admitted "
+        f"{out['quoter']['admitted']} of {out['quoter']['statements']}")
+    assert out["seconds"] < MONITOR_BUDGET_S, out["seconds"]
+    return out
+
+
 # ---------------- phase 13: the row store ----------------
 
 #: phase 13's own time limit (data generation included)
@@ -4877,6 +5357,10 @@ def main(argv=None) -> int:
         # ---- phase 12: chaos and the timeline ----
         chaos = chaos_phase(dev, ck, roots[0], serving_root, chaos_answers,
                             want)
+
+        # ---- phase 14: monitoring, coordination and load ----
+        monitor = monitor_phase(dev, ck, serving_root, want,
+                                serving["tpch_table_rows"])
     finally:
         for root in roots:
             shutil.rmtree(root, ignore_errors=True)
@@ -4907,11 +5391,16 @@ def main(argv=None) -> int:
         row["serving_checked_calls"] = sum(
             q[row["name"]]["calls"]
             for q in serving["kernel_check"].values())
+        row["monitor_launches"] = monitor["launches"][row["name"]]
+        row["monitor_checked_calls"] = sum(
+            q[row["name"]]["calls"]
+            for q in monitor["kernel_check"].values())
         row["max_abs_err"] = max(row["max_abs_err"], *(
             q[row["name"]]["max_abs_err"]
             for q in (*serving["kernel_check"].values(),
                       *sanitize["kernel_check"].values(),
                       *chaos["resident"]["kernel_check"].values(),
+                      *monitor["kernel_check"].values(),
                       *row_store["kernel_check"].values())))
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
@@ -4922,7 +5411,8 @@ def main(argv=None) -> int:
                   sql_golden_float_exceptions=exceptions,
                   sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion,
                   tpcds=tpcds_rows, storage=storage, serving=serving,
-                  sanitize=sanitize, chaos=chaos, row_store=row_store)
+                  sanitize=sanitize, chaos=chaos, monitor=monitor,
+                  row_store=row_store)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

@@ -13,9 +13,10 @@ Besides: TPC-H q3, q4 and q13 with ``orders`` as a row table at sf 0.01
 equal ``tests/golden_tpch.json``; a store written by either package over
 a ``DirBlobStore`` boots in the other with the same rows, dictionary
 ids and blobs; a statement builds a row table's source only when it
-reads that table (answers equal to the eager build); sequences and
-changefeeds raise a typed ``PlanError`` naming their ROADMAP items; row
-shards appear in ``tablet_counters.collect``."""
+reads that table (answers equal to the eager build); sequences over row
+tables answer as the reference's, and changefeeds raise a typed
+``PlanError`` naming their ROADMAP item; row shards appear in
+``tablet_counters.collect``."""
 
 import hashlib
 import json
@@ -435,7 +436,7 @@ def test_store_boots_in_the_other_package(tmp_path, writer):
     _same(_host(back.session().execute(_STORE_READ)), after, _STORE_READ)
 
 
-# ---------------- what waits for later items ----------------
+# ---------------- sequences, and what waits for later items ----------------
 
 @pytest.mark.parametrize("sql,item", [
     ("create sequence s1", "item 10"),
@@ -445,9 +446,23 @@ def test_store_boots_in_the_other_package(tmp_path, writer):
      "with (store = row, changefeed = on)", "item 11"),
 ])
 def test_sequences_and_changefeeds_raise_typed_plan_error(sql, item):
+    """Sequences are ported (ROADMAP.md queue A item 10, ``tablet/
+    kesus.py``): each statement over a row table answers as the
+    reference's, a missing sequence included. A changefeed still raises a
+    typed ``PlanError`` naming item 11."""
+    kv = ("create table kv (k bigint not null, v bigint, "
+          "primary key (k)) with (store = row)")
+    if item == "item 10":
+        read = "select k, v from kv order by k"
+        _both([kv, sql, read])  # before any CREATE SEQUENCE
+        ref, port = _both([kv, "create sequence s1 start 5 cache 2", sql,
+                           read, "insert into kv values (nextval('s1'), "
+                           "2), (nextval('s1'), 3)", read])
+        if sql.startswith("drop"):
+            assert "s1" not in port.sequences._cache
+        return
     s = Cluster(device="cpu").session()
-    s.execute("create table kv (k bigint not null, v bigint, "
-              "primary key (k)) with (store = row)")
+    s.execute(kv)
     with pytest.raises(PlanError, match=item):
         s.execute(sql)
     assert "cf" not in s.cluster.tables

@@ -273,6 +273,14 @@ ROW_STORE_MODULES = (
     "ydb_tpu_torch.datashard.pipeline", "ydb_tpu_torch.datashard.table",
     "ydb_tpu_torch.tx.mediator",
 )
+#: sys views, the viewer, the load service, Kesus and sequences, the
+#: quoter, backup and the session pool (ROADMAP.md queue A items 9-10)
+MONITORING_MODULES = (
+    "ydb_tpu_torch.obs.sysview", "ydb_tpu_torch.obs.viewer",
+    "ydb_tpu_torch.obs.viewer_html", "ydb_tpu_torch.obs.loadtest",
+    "ydb_tpu_torch.tablet.kesus", "ydb_tpu_torch.runtime.quoter",
+    "ydb_tpu_torch.engine.backup", "ydb_tpu_torch.kqp.proxy",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -296,7 +304,7 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         print(len(names))
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
            + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
-           + ANALYSIS_MODULES + ROW_STORE_MODULES,))
+           + ANALYSIS_MODULES + ROW_STORE_MODULES + MONITORING_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

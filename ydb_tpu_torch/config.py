@@ -9,9 +9,9 @@ immediate_control_board_wrapper.h:7), and feature flags consulted at
 gates (TFeatureFlags analog).
 
 The port's own copy of ``ydb_tpu/config.py``. The port's ``Cluster``
-gates row tables on ``enable_row_tables`` as the reference does; it has
-no sys views and no changefeeds yet, whatever ``enable_sys_views`` and
-``enable_changefeeds`` say (ROADMAP.md queue A items 9 and 11).
+gates row tables on ``enable_row_tables`` and the sys views on
+``enable_sys_views`` as the reference does; it has no changefeeds yet,
+whatever ``enable_changefeeds`` says (ROADMAP.md queue A item 11).
 """
 
 from __future__ import annotations

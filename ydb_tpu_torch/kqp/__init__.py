@@ -1,6 +1,7 @@
 """Query processing: sessions and the cluster (``session.py``), the
 cross-query batching dispatcher (``batch.py``), admission planes
-(``rm.py``) and plan lowering to the DQ stage graph (``dq_lower.py``).
+(``rm.py``), the session pool (``proxy.py``) and plan lowering to the DQ
+stage graph (``dq_lower.py``).
 
 ``Cluster`` and ``Session`` load on first use: the submodules import
 the plan executor, and ``kqp.dq_lower`` must stay importable without

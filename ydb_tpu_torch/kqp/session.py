@@ -31,14 +31,20 @@ on every statement (off its mesh path). A statement's device work
 ``device.work_lock`` shared, so a CUDA graph capture on another thread
 never overlaps it; row DML takes its shard locks before it.
 
+Sys views (``obs/sysview.py``, gated on ``enable_sys_views``) build
+lazily inside the statement's ``_RowSources``: a statement that reads no
+sys view builds none. ``Cluster.quoter`` (``runtime/quoter.py``), when
+set, gates every statement on the ``kqp/requests`` bucket and raises
+``ThrottledError``. ``CREATE`` / ``DROP SEQUENCE`` and ``nextval`` in
+INSERT run over ``Cluster.sequences`` (``tablet/kesus.py``'s
+``SequenceShard`` on the cluster's store, booted on first use).
+``run_background`` shrinks a ``CachedBlobStore``'s budget when the
+process's RSS nears ``memory_soft_limit_bytes``.
+
 Left out, each for a later item of ROADMAP.md queue A, with a typed
-``PlanError`` naming it where a statement reaches it: sequences
-(``CREATE SEQUENCE``, ``DROP SEQUENCE``, ``nextval``; item 10);
-changefeeds and topics (item 11); sys views (``sys_active_queries`` and
-``sys_top_queries`` with them; item 9); the quoter (item 10); the mesh
-executor (item 13); the page-cache pressure reaction of
-``run_background`` (the blob-storage page cache comes with the cluster
-plane, item 12).
+``PlanError`` naming it where a statement reaches it: changefeeds and
+topics (item 11; ``Cluster.topics`` stays empty); the mesh executor
+(item 13).
 
 Observability and chaos: the ``kqp.plan_cache`` probe fires per plan
 lookup and ``query.slow`` once per statement past
@@ -69,6 +75,7 @@ from ydb_tpu_torch.blocks.dictionary import DictionarySet
 from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.engine.blobs import BlobStore, MemBlobStore
 from ydb_tpu_torch.engine.oracle import OracleTable
+from ydb_tpu_torch.obs.sysview import SYS_SCHEMAS, health_check, table_stats
 from ydb_tpu_torch.plan import Database, execute_plan, to_host
 from ydb_tpu_torch.sql import ast
 from ydb_tpu_torch.sql.parser import parse
@@ -88,9 +95,7 @@ _P_SLOW = _probe("query.slow")
 # conveyor queue-depth histogram buckets (task counts, not seconds)
 _DEPTH_BOUNDS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
-#: what a statement that needs sequences or changefeeds is told
-SEQUENCES_LATER = ("the port has no sequences yet (ROADMAP.md queue A "
-                   "item 10: the gRPC front, with tablet/kesus.py)")
+#: what a statement that needs changefeeds is told
 CHANGEFEEDS_LATER = ("the port has no changefeeds yet (ROADMAP.md queue A "
                      "item 11: streaming)")
 
@@ -121,6 +126,35 @@ def _parse_type(t: str) -> dtypes.LogicalType:
     if t in _TYPE_MAP:
         return _TYPE_MAP[t]
     raise PlanError(f"unknown type {t}")
+
+
+def _find_page_cache(store, depth: int = 4):
+    """Locate a pressure-reactive page cache in a (possibly wrapped)
+    store: walks common wrapper attributes (CachedBlobStore.base,
+    tiered hot/cold, failpoint inner)."""
+    if store is None or depth < 0:
+        return None
+    if hasattr(store, "react_to_pressure"):
+        return store
+    for attr in ("base", "hot", "cold", "inner", "store"):
+        found = _find_page_cache(getattr(store, attr, None), depth - 1)
+        if found is not None:
+            return found
+    return None
+
+
+def _process_rss() -> int:
+    """Current resident set size in bytes (Linux /proc; real page
+    size). 0 when unreadable — pressure reaction then stays idle
+    rather than acting on a lying number."""
+    try:
+        import resource
+
+        with open("/proc/self/statm") as f:
+            return (int(f.read().split()[1])
+                    * resource.getpagesize())
+    except OSError:
+        return 0
 
 
 def _release(values) -> None:
@@ -188,37 +222,6 @@ class _BoundedCompileCache(dict):
         return sum(p.pool_bytes or 0 for p in plans)
 
 
-def table_stats(cluster) -> dict[str, dict]:
-    """Per-table statistics from portion metas (the reference's
-    ``obs/sysview.table_stats(cluster, cheap=True)``): row counts + PK
-    bounds from portion METADATA only; feeds CBO join ordering
-    (``Catalog.row_counts``). Row tables report rows=None (unknown)
-    rather than paying a full page walk on every statement plan."""
-    out: dict[str, dict] = {}
-    for tname, t in cluster.tables.items():
-        rows = 0
-        unknown = False
-        portions = 0
-        pk_min = pk_max = None
-        for s in t.shards:
-            if not hasattr(s, "portions"):
-                unknown = True  # no metadata count for row tables
-                continue
-            for m in s.visible_portions():
-                rows += m.num_rows
-                portions += 1
-                if m.pk_min is not None:
-                    pk_min = (m.pk_min if pk_min is None
-                              else min(pk_min, m.pk_min))
-                if m.pk_max is not None:
-                    pk_max = (m.pk_max if pk_max is None
-                              else max(pk_max, m.pk_max))
-        out[tname] = {"rows": None if unknown else rows,
-                      "portions": portions,
-                      "pk_min": pk_min, "pk_max": pk_max}
-    return out
-
-
 class Cluster:
     """Storage + schema tablet + plan cache: one in-process database.
 
@@ -260,6 +263,9 @@ class Cluster:
         self.n_shards = (n_shards if n_shards is not None
                          else self.config.n_shards)
         self.tables: dict = {}  # name -> ShardedTable | RowTable
+        # topics come with streaming (ROADMAP.md queue A item 11); the
+        # viewer and tablet counters read this empty map until then
+        self.topics: dict = {}
         #: every table's full primary key (the scheme's), for the planner
         self.primary_keys: dict[str, tuple] = {}
         self.counters = CounterGroup({"component": "kqp"})
@@ -267,6 +273,9 @@ class Cluster:
         self.query_log: deque = deque(maxlen=256)
         # audit trail of state-changing statements (audit log analog)
         self.audit_log: deque = deque(maxlen=1024)
+        # optional request-unit quoter (runtime/quoter.py): when set,
+        # every statement consumes 1 unit from "kqp/requests"
+        self.quoter = None
         # usage metering: request units booked per statement
         self.metering = Metering()
         # optional admission planes (kqp rm_service/workload_service):
@@ -298,6 +307,9 @@ class Cluster:
             os.environ.get("YDB_TPU_TORCH_MAX_INFLIGHT", "0") or 0)
         # registered scalar UDFs: name -> (vectorized fn, result type)
         self.udfs: dict[str, tuple] = {}
+        # durable sequence allocator (tablet/kesus.py SequenceShard),
+        # lazily booted on first CREATE SEQUENCE / nextval
+        self._sequences = None
         # live-tunable knobs (immediate control board)
         self.icb = ControlBoard()
         self.icb.register("rmw_retries", 5, 1, 100)
@@ -628,6 +640,15 @@ class Cluster:
             for k, v in res.items():
                 g.counter(k).set(v)
             stats["resident_bytes"] = res["bytes"]
+        # memory pressure: when the store is (or wraps) a shared page
+        # cache, shrink its budget as process RSS approaches the soft
+        # limit and restore it when pressure clears
+        cache = _find_page_cache(self.store)
+        limit = getattr(self.config, "memory_soft_limit_bytes", 0)
+        rss = _process_rss()
+        if cache is not None and limit and rss:
+            stats["cache_pressure"] = cache.react_to_pressure(
+                rss / limit)
         # conveyor queue telemetry: lifetime totals plus the depth
         # high-water mark and per-queue wait samples since the last pass
         from ydb_tpu_torch.runtime.conveyor import shared_conveyor
@@ -806,6 +827,9 @@ class Cluster:
                 self.reshard_table(name, max(n // 2, floor))
                 stats["merges"] += 1
 
+    def health(self) -> dict:
+        return health_check(self)
+
     # ---- row-store DML (UPDATE / DELETE) ----
 
     def _row_table(self, name: str):
@@ -983,6 +1007,17 @@ class Cluster:
             return TxResult(0, snap, True)
         return t._commit_ops(ops, lock_ids=locks)
 
+    @property
+    def sequences(self):
+        if self._sequences is None:
+            from ydb_tpu_torch.tablet.kesus import SequenceShard
+
+            with self._qid_lock:  # double-boot would fork the journal
+                if self._sequences is None:
+                    self._sequences = SequenceShard("cluster",
+                                                    self.store)
+        return self._sequences
+
     def insert(self, stmt: ast.Insert) -> TxResult:
         t, arrays, val = self._insert_arrays(stmt)
         res = t.insert(arrays, val)  # journals dict growth via pre_commit
@@ -1013,7 +1048,17 @@ class Cluster:
                 raise PlanError("row arity mismatch")
             for n, e in zip(names, row):
                 if isinstance(e, ast.FuncCall) and e.name == "nextval":
-                    raise PlanError(f"nextval: {SEQUENCES_LATER}")
+                    # volatile per-row default from the durable
+                    # sequence allocator (kqp sequencer analog)
+                    if len(e.args) != 1 or not (
+                            isinstance(e.args[0], ast.Literal)
+                            and e.args[0].kind == "string"):
+                        raise PlanError(
+                            "nextval needs a sequence name literal")
+                    arg = e.args[0]
+                    cols[n].append(self.sequences.next_val(arg.value))
+                    validity[n].append(True)
+                    continue
                 v, ok = _literal_value(e, t.schema.field(n).type)
                 cols[n].append(v)
                 validity[n].append(ok)
@@ -1064,6 +1109,10 @@ class Cluster:
         # first column alone (the reference's ``(t.pk_column,)``) turns a
         # many-rows-per-key join into a lookup and drops rows
         pks = dict(self.primary_keys)
+        if self.flags.enable_sys_views:
+            for name, schema in SYS_SCHEMAS.items():
+                schemas.setdefault(name, schema)
+                pks.setdefault(name, (schema.names[0],))
         # statistics feed for CBO-lite join ordering (cheap: portion
         # metadata only, no scans)
         counts = {n: st["rows"] for n, st in table_stats(self).items()
@@ -1082,7 +1131,8 @@ class Cluster:
             if access_check is not None:
                 access_check(plan_node)
             if stmt_db[0] is None:
-                stmt_db[0] = self.snapshot_db(snap)
+                stmt_db[0] = self.snapshot_db(
+                    snap, include_sys=self.flags.enable_sys_views)
             out = to_host(execute_plan(plan_node, stmt_db[0]))
             col = out.schema.names[0]
             v, ok = out.cols[col]
@@ -1099,16 +1149,18 @@ class Cluster:
         self.udfs[name.lower()] = (fn, out_type)
         self._invalidate_plans()
 
-    def snapshot_db(self, snap: int | None = None) -> Database:
+    def snapshot_db(self, snap: int | None = None,
+                    include_sys: bool = False) -> Database:
         """The Database a statement reads: every column table's shard
         streams at one snapshot, on the cluster's device, and every row
         table's ``source_at`` at the same snapshot, built when the
-        statement first reads it (``_RowSources``)."""
+        statement first reads it (``_RowSources``); with
+        ``include_sys``, each sys view likewise."""
         from ydb_tpu_torch.datashard.table import RowTable
 
         snap = self.coordinator.read_snapshot() if snap is None else snap
         self._prune_scan_cache()
-        sources = _RowSources(snap)
+        sources = _RowSources(snap, self if include_sys else None)
         for name, t in self.tables.items():
             if isinstance(t, RowTable):
                 sources.row_tables[name] = t
@@ -1235,27 +1287,39 @@ class _RowSources(dict):
     table's ``source_at(snap)`` built on its first lookup and kept for
     the rest of the statement, so a statement that reads no row table
     walks none (the reference's mesh path, ``_Lazy`` in
-    ``ydb_tpu/kqp/session.py``). ``get`` and ``in`` build too: fusion
-    and batching probe with ``sources.get``, which a plain dict answers
+    ``ydb_tpu/kqp/session.py``). With a ``sys_cluster``, each sys view
+    (``obs/sysview.py``) builds on its first lookup too, so a statement
+    that reads no sys view builds none (the reference's
+    ``_SysLazySources``). ``get`` and ``in`` build too: fusion and
+    batching probe with ``sources.get``, which a plain dict answers
     without ``__missing__``. The lock keeps two workers of one statement
     from building the same table twice."""
 
-    def __init__(self, snap: int):
+    def __init__(self, snap: int, sys_cluster=None):
         super().__init__()
         self.snap = snap
         self.row_tables: dict = {}
+        self._sys_cluster = sys_cluster
         self._build_lock = threading.Lock()
 
     def __missing__(self, key):
         t = self.row_tables.get(key)
-        if t is None:
+        if t is None and not self._is_sys(key):
             raise KeyError(key)
         with self._build_lock:
             if dict.__contains__(self, key):
                 return dict.__getitem__(self, key)
-            src = t.source_at(self.snap)
+            if t is not None:
+                src = t.source_at(self.snap)
+            else:
+                from ydb_tpu_torch.obs.sysview import sys_source
+
+                src = sys_source(self._sys_cluster, key)
             self[key] = src
             return src
+
+    def _is_sys(self, key) -> bool:
+        return self._sys_cluster is not None and key in SYS_SCHEMAS
 
     def get(self, key, default=None):
         try:
@@ -1264,7 +1328,12 @@ class _RowSources(dict):
             return default
 
     def __contains__(self, key):
-        return dict.__contains__(self, key) or key in self.row_tables
+        if dict.__contains__(self, key) or key in self.row_tables:
+            return True
+        if self._is_sys(key):
+            self[key]  # builds the view, as a lookup would
+            return True
+        return False
 
 
 def _merge_shard_sources(t: ShardedTable, snap: int):
@@ -1414,6 +1483,12 @@ class Session:
         from ydb_tpu_torch.kqp.rm import OverloadedError
 
         c = self.cluster
+        if c.quoter is not None and not c.quoter.try_acquire(
+                "kqp/requests"):
+            from ydb_tpu_torch.runtime.quoter import ThrottledError
+
+            c.counters.group(kind="throttled").counter("queries").inc()
+            raise ThrottledError("request rate limit exceeded")
         t0 = _time.monotonic()  # BEFORE admission: queue wait is part
         # of the latency operators observe
         # load shedding BEFORE the statement enters the registry: past
@@ -1764,9 +1839,18 @@ class Session:
         if isinstance(planned, ast.Rollback):
             self._tx_release()
             return None
-        if isinstance(planned, (ast.CreateSequence, ast.DropSequence)):
+        if isinstance(planned, ast.CreateSequence):
             self._no_tx("DDL")
-            raise PlanError(f"SEQUENCE: {SEQUENCES_LATER}")
+            self._check_access("ddl", "/" + planned.name)
+            self.cluster.sequences.create_sequence(
+                planned.name, start=planned.start,
+                increment=planned.increment, cache=planned.cache)
+            return None
+        if isinstance(planned, ast.DropSequence):
+            self._no_tx("DDL")
+            self._check_access("ddl", "/" + planned.name)
+            self.cluster.sequences.drop_sequence(planned.name)
+            return None
         if isinstance(planned, ast.CreateTable):
             self._no_tx("DDL")
             self._check_access("ddl", "/" + planned.table)
@@ -1856,8 +1940,11 @@ class Session:
         if plan_db is not None:
             return plan_db
         if self._tx is not None:
-            return self.cluster.snapshot_db(self._tx["snap"])
-        return self.cluster.snapshot_db()
+            return self.cluster.snapshot_db(
+                self._tx["snap"],
+                include_sys=self.cluster.flags.enable_sys_views)
+        return self.cluster.snapshot_db(
+            include_sys=self.cluster.flags.enable_sys_views)
 
     def _explain_analyze(self, planned) -> str:
         """EXPLAIN ANALYZE: run the query for real (same snapshot rules

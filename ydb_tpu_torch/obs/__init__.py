@@ -1,4 +1,5 @@
 """Observability: counters, tracing spans, query profiles, metering, the
 probe registry with the scan's per-stage timer, the data-movement
-timeline, tablet counters and the kernel bench. The viewer and the sys
-views wait for ROADMAP.md queue A item 9."""
+timeline, tablet counters, the kernel bench, the sys views and health
+check (``sysview.py``), the monitoring HTTP viewer (``viewer.py``,
+``viewer_html.py``) and the load-test service (``loadtest.py``)."""
