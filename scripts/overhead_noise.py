@@ -100,7 +100,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     data = tpch.TpchData(sf=args.sf, seed=5)
     prog = tpch.q1_program()
-    shard, n = kb._lineitem_shard("aa", args.sf, args.block_rows, dev, data)
+    shard, n = kb.lineitem_shard("aa", args.sf, args.block_rows, dev, data)
     twin, n_twin = twin_shard(data, args.block_rows, dev)
     for sh in (shard, twin):
         sh.scan(prog)

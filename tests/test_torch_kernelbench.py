@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from ydb_tpu_torch.obs import kernelbench
+from ydb_tpu_torch.workload import tpch
 
 
 @pytest.fixture(autouse=True)
@@ -60,3 +61,17 @@ def test_shuffle_names_the_mesh_item():
     with pytest.raises(kernelbench.MeshNotPorted, match="item 13"):
         kernelbench.main(["--shuffle", "--device", "cpu"])
     assert issubclass(kernelbench.MeshNotPorted, NotImplementedError)
+
+
+def test_profile_verdict_counts_and_times_the_trace_work():
+    shard = kernelbench.lineitem_shard("t", 0.005, 1 << 12, "cpu",
+                                       tpch.TpchData(sf=0.005, seed=5))
+    out = kernelbench.bench_profile_overhead(0.005, 2, 1 << 12,
+                                             assert_within=0.5,
+                                             device="cpu", shard=shard)
+    # the profiled scan's spans: shard.scan and its prefetch producer,
+    # which the conveyor carried onto a worker under the trace
+    assert out["trace_spans"] >= 2 and out["trace_wraps"] >= 1, out
+    assert out["profile_added_ms"] > 0, out
+    assert out["rows"] == shard[1] and out["rounds"] == 2
+    assert out["timeline_disabled_events"] == 0

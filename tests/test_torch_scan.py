@@ -281,6 +281,13 @@ MONITORING_MODULES = (
     "ydb_tpu_torch.tablet.kesus", "ydb_tpu_torch.runtime.quoter",
     "ydb_tpu_torch.engine.backup", "ydb_tpu_torch.kqp.proxy",
 )
+#: the gRPC front, less cli.py (ROADMAP.md queue A item 10)
+GRPC_MODULES = (
+    "ydb_tpu_torch.api.build", "ydb_tpu_torch.api._gen",
+    "ydb_tpu_torch.api._gen.ydb_tpu_api_pb2", "ydb_tpu_torch.api.arrow_io",
+    "ydb_tpu_torch.api.server", "ydb_tpu_torch.api.client",
+    "ydb_tpu_torch.blocks.arrow_bridge", "ydb_tpu_torch.runtime.console",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -304,7 +311,8 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
         print(len(names))
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
            + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
-           + ANALYSIS_MODULES + ROW_STORE_MODULES + MONITORING_MODULES,))
+           + ANALYSIS_MODULES + ROW_STORE_MODULES + MONITORING_MODULES
+           + GRPC_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

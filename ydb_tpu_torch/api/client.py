@@ -1,0 +1,479 @@
+"""Client SDK: driver + per-service clients over gRPC.
+
+Mirror of the reference's SDK shape (TDriver/TTableClient,
+public/sdk/cpp; SURVEY.md layer 9): a Driver owns the channel and auth
+metadata; service clients hang off it. Query results come back as
+pyarrow Tables.
+
+The port's own copy of ``ydb_tpu/api/client.py``: the same method paths
+and messages, so it drives the port's server (``server.py``) and the
+reference's alike. ``TopicClient`` and ``KeyValueClient`` are thin stubs
+over the wire: the port's server answers their RPCs ``UNIMPLEMENTED``
+until ROADMAP.md queue A items 11 and 12 bring those services; the
+reference's server serves them.
+"""
+
+from __future__ import annotations
+
+import grpc
+
+from ydb_tpu_torch.api.arrow_io import ipc_to_table
+from ydb_tpu_torch.api.build import ensure_protos
+
+pb = ensure_protos()
+
+
+class ApiError(Exception):
+    pass
+
+
+class Driver:
+    def __init__(self, endpoint: str, auth_token: str | None = None):
+        self.channel = grpc.insecure_channel(endpoint)
+        self.metadata = (
+            (("x-ydb-auth-ticket", auth_token),) if auth_token else ()
+        )
+
+    def close(self):
+        self.channel.close()
+
+    def _call(self, method: str, request, resp_cls):
+        rpc = self.channel.unary_unary(
+            method,
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=resp_cls.FromString,
+        )
+        return rpc(request, metadata=self.metadata)
+
+    def query_client(self) -> "QueryClient":
+        return QueryClient(self)
+
+    def scheme_client(self) -> "SchemeClient":
+        return SchemeClient(self)
+
+    def topic_client(self) -> "TopicClient":
+        return TopicClient(self)
+
+    def export_client(self) -> "ExportClient":
+        return ExportClient(self)
+
+    def rate_limiter_client(self) -> "RateLimiterClient":
+        return RateLimiterClient(self)
+
+    def table_client(self) -> "TableClient":
+        return TableClient(self)
+
+    def keyvalue_client(self) -> "KeyValueClient":
+        return KeyValueClient(self)
+
+    def federation_databases(self) -> list[dict]:
+        resp = self._call(
+            "/ydb_tpu.FederationDiscovery/ListFederationDatabases",
+            pb.ListFederationDatabasesRequest(),
+            pb.ListFederationDatabasesResponse)
+        return [{"name": d.name, "endpoint": d.endpoint,
+                 "status": d.status} for d in resp.databases]
+
+    def discovery(self) -> list[tuple[str, int]]:
+        resp = self._call("/ydb_tpu.Discovery/ListEndpoints",
+                          pb.ListEndpointsRequest(),
+                          pb.ListEndpointsResponse)
+        return [(e.address, e.port) for e in resp.endpoints]
+
+
+class QueryClient:
+    def __init__(self, driver: Driver):
+        self.driver = driver
+        resp = driver._call("/ydb_tpu.Query/CreateSession",
+                            pb.CreateSessionRequest(),
+                            pb.CreateSessionResponse)
+        self.session_id = resp.session_id
+
+    def close(self):
+        """Release the server-side session."""
+        self.driver._call("/ydb_tpu.Query/DeleteSession",
+                          pb.DeleteSessionRequest(
+                              session_id=self.session_id),
+                          pb.DeleteSessionResponse)
+
+    def execute(self, sql: str):
+        """pyarrow.Table for SELECT; (step, committed) for DML/DDL."""
+        resp = self.driver._call(
+            "/ydb_tpu.Query/ExecuteQuery",
+            pb.ExecuteQueryRequest(session_id=self.session_id, sql=sql),
+            pb.ExecuteQueryResponse)
+        if resp.status != pb.ExecuteQueryResponse.SUCCESS:
+            raise ApiError(resp.error)
+        if resp.plan_text:
+            return resp.plan_text  # EXPLAIN
+        if resp.arrow_ipc:
+            return ipc_to_table(resp.arrow_ipc)
+        return (resp.tx_step, resp.committed)
+
+
+class SchemeClient:
+    def __init__(self, driver: Driver):
+        self.driver = driver
+
+    def list_directory(self, path: str = "/"):
+        resp = self.driver._call(
+            "/ydb_tpu.Scheme/ListDirectory",
+            pb.ListDirectoryRequest(path=path), pb.ListDirectoryResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return [(e.path, e.kind) for e in resp.children]
+
+    def describe_table(self, path: str):
+        resp = self.driver._call(
+            "/ydb_tpu.Scheme/DescribeTable",
+            pb.DescribeTableRequest(path=path), pb.DescribeTableResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp
+
+
+class TopicClient:
+    def __init__(self, driver: Driver):
+        self.driver = driver
+
+    def write(self, topic: str, data: bytes | str, key: str = "",
+              producer: str = "", seqno: int = 0):
+        if isinstance(data, str):
+            data = data.encode()
+        resp = self.driver._call(
+            "/ydb_tpu.Topic/Write",
+            pb.TopicWriteRequest(topic=topic, key=key, data=data,
+                                 producer=producer, seqno=seqno),
+            pb.TopicWriteResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.partition, resp.offset
+
+    def read(self, topic: str, consumer: str, limit: int = 100):
+        resp = self.driver._call(
+            "/ydb_tpu.Topic/Read",
+            pb.TopicReadRequest(topic=topic, consumer=consumer,
+                                limit=limit),
+            pb.TopicReadResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return [(m.partition, m.offset, m.data) for m in resp.messages]
+
+    def stream_read(self, topic: str, consumer: str,
+                    max_batch: int = 100, auto_commit: bool = True,
+                    idle_timeout_ms: int = 0):
+        """Streaming read session: yields (partition, offset, data)
+        until the server ends the stream (idle timeout) or the caller
+        breaks out (cancelling the RPC)."""
+        rpc = self.driver.channel.unary_stream(
+            "/ydb_tpu.Topic/StreamRead",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.TopicReadResponse.FromString,
+        )
+        stream = rpc(pb.StreamReadRequest(
+            topic=topic, consumer=consumer, max_batch=max_batch,
+            auto_commit=auto_commit, idle_timeout_ms=idle_timeout_ms,
+        ), metadata=self.driver.metadata)
+        try:
+            for resp in stream:
+                if resp.error:
+                    raise ApiError(resp.error)
+                for m in resp.messages:
+                    yield m.partition, m.offset, m.data
+        finally:
+            stream.cancel()
+
+    def stream_write(self, topic: str, items):
+        """Streaming write session: ``items`` yields (data, key,
+        producer, seqno) tuples (or bare bytes); returns the acks."""
+        def gen():
+            for it in items:
+                if isinstance(it, (bytes, str)):
+                    data, key, producer, seqno = it, "", "", 0
+                else:
+                    data, key, producer, seqno = it
+                if isinstance(data, str):
+                    data = data.encode()
+                yield pb.StreamWriteItem(
+                    topic=topic, key=key, data=data,
+                    producer=producer, seqno=seqno)
+
+        rpc = self.driver.channel.stream_stream(
+            "/ydb_tpu.Topic/StreamWrite",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.StreamWriteAck.FromString,
+        )
+        acks = []
+        for ack in rpc(gen(), metadata=self.driver.metadata):
+            if ack.error:
+                raise ApiError(ack.error)
+            acks.append((ack.partition, ack.offset))
+        return acks
+
+    def commit(self, topic: str, consumer: str, partition: int,
+               offset: int):
+        resp = self.driver._call(
+            "/ydb_tpu.Topic/Commit",
+            pb.TopicCommitRequest(topic=topic, consumer=consumer,
+                                  partition=partition, offset=offset),
+            pb.TopicCommitResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+
+
+class ExportClient:
+    """Export/Import service (ydb_export/ydb_import analog)."""
+
+    def __init__(self, driver: Driver):
+        self.driver = driver
+
+    def export_table(self, table: str, name: str = ""):
+        resp = self.driver._call(
+            "/ydb_tpu.Export/ExportBackup",
+            pb.ExportRequest(table=table, name=name), pb.ExportResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return {"rows": resp.rows, "parts": resp.parts,
+                "snapshot": resp.snapshot}
+
+    def import_table(self, name: str, table: str = "", shards: int = 0):
+        resp = self.driver._call(
+            "/ydb_tpu.Import/ImportBackup",
+            pb.ImportRequest(name=name, table=table, shards=shards),
+            pb.ImportResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.rows
+
+    def list_backups(self):
+        resp = self.driver._call(
+            "/ydb_tpu.Export/ListBackups", pb.ListBackupsRequest(),
+            pb.ListBackupsResponse)
+        return [(b.name, b.rows, b.snapshot) for b in resp.backups]
+
+
+class RateLimiterClient:
+    """RateLimiter service (kesus token buckets over runtime.quoter)."""
+
+    def __init__(self, driver: Driver):
+        self.driver = driver
+
+    def create_resource(self, path: str, rate: float,
+                        burst: float = 0.0):
+        resp = self.driver._call(
+            "/ydb_tpu.RateLimiter/CreateResource",
+            pb.CreateResourceRequest(path=path, rate=rate, burst=burst),
+            pb.CreateResourceResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+
+    def acquire(self, path: str, amount: float = 1.0):
+        """(acquired, retry_after_seconds)"""
+        resp = self.driver._call(
+            "/ydb_tpu.RateLimiter/AcquireResource",
+            pb.AcquireResourceRequest(path=path, amount=amount),
+            pb.AcquireResourceResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.acquired, resp.retry_after_s
+
+    def describe_resource(self, path: str):
+        resp = self.driver._call(
+            "/ydb_tpu.RateLimiter/DescribeResource",
+            pb.DescribeResourceRequest(path=path),
+            pb.DescribeResourceResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return {"rate": resp.rate, "burst": resp.burst,
+                "tokens": resp.tokens}
+
+
+class TableClient:
+    """Table service (ydb_table_v1 / TTableClient analog): structured
+    DDL, data queries with client tx control, Arrow BulkUpsert,
+    streaming ReadTable."""
+
+    def __init__(self, driver: Driver):
+        self.driver = driver
+        resp = driver._call("/ydb_tpu.Table/CreateSession",
+                            pb.CreateSessionRequest(),
+                            pb.CreateSessionResponse)
+        self.session_id = resp.session_id
+
+    def close(self):
+        self.driver._call("/ydb_tpu.Table/DeleteSession",
+                          pb.DeleteSessionRequest(
+                              session_id=self.session_id),
+                          pb.DeleteSessionResponse)
+
+    def create_table(self, path: str, columns, primary_key,
+                     store: str = "", shards: int = 0):
+        """columns: [(name, type, not_null)] triples."""
+        resp = self.driver._call(
+            "/ydb_tpu.Table/CreateTable",
+            pb.CreateTableRequest(
+                path=path,
+                columns=[pb.TableColumnSpec(
+                    name=n, type=t, not_null=nn)
+                    for n, t, nn in columns],
+                primary_key=list(primary_key),
+                store=store, shards=shards),
+            pb.CreateTableResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+
+    def drop_table(self, path: str):
+        resp = self.driver._call(
+            "/ydb_tpu.Table/DropTable",
+            pb.DropTableRequest(path=path), pb.DropTableResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+
+    def alter_table(self, path: str, add_columns) -> int:
+        """add_columns: [(name, type)]; returns new schema version."""
+        resp = self.driver._call(
+            "/ydb_tpu.Table/AlterTable",
+            pb.AlterTableAddColumnsRequest(
+                path=path,
+                add_columns=[pb.TableColumnSpec(name=n, type=t)
+                             for n, t in add_columns]),
+            pb.AlterTableResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.schema_version
+
+    def copy_table(self, src: str, dst: str) -> int:
+        resp = self.driver._call(
+            "/ydb_tpu.Table/CopyTable",
+            pb.CopyTableRequest(src=src, dst=dst),
+            pb.CopyTableResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.rows
+
+    def execute(self, sql: str, begin: bool = False,
+                commit: bool = False, tx_id: str = ""):
+        """Returns (result, tx_id): result is a pyarrow Table for
+        SELECT, (step, committed) for DML; tx_id is non-empty while an
+        interactive tx stays open."""
+        resp = self.driver._call(
+            "/ydb_tpu.Table/ExecuteDataQuery",
+            pb.ExecuteDataQueryRequest(
+                session_id=self.session_id, sql=sql,
+                tx=pb.TxControl(begin=begin, commit=commit,
+                                tx_id=tx_id)),
+            pb.ExecuteDataQueryResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        if resp.arrow_ipc:
+            return ipc_to_table(resp.arrow_ipc), resp.tx_id
+        return (resp.tx_step, resp.committed), resp.tx_id
+
+    def explain(self, sql: str) -> str:
+        resp = self.driver._call(
+            "/ydb_tpu.Table/ExplainDataQuery",
+            pb.ExplainQueryRequest(sql=sql), pb.ExplainQueryResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.plan_text
+
+    def bulk_upsert(self, table: str, arrow_table) -> int:
+        """pyarrow.Table -> the shards, bypassing SQL compilation."""
+        import io
+
+        import pyarrow as pa
+
+        sink = io.BytesIO()
+        with pa.ipc.new_stream(sink, arrow_table.schema) as w:
+            w.write_table(arrow_table)
+        resp = self.driver._call(
+            "/ydb_tpu.Table/BulkUpsert",
+            pb.BulkUpsertRequest(table=table,
+                                 arrow_ipc=sink.getvalue()),
+            pb.BulkUpsertResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.rows
+
+    def read_table(self, path: str, columns=(), batch_rows: int = 0):
+        """Yields pyarrow Tables (one per server batch)."""
+        rpc = self.driver.channel.unary_stream(
+            "/ydb_tpu.Table/StreamReadTable",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.ReadTableBatch.FromString,
+        )
+        stream = rpc(pb.ReadTableRequest(
+            path=path, columns=list(columns), batch_rows=batch_rows),
+            metadata=self.driver.metadata)
+        for batch in stream:
+            if batch.error:
+                raise ApiError(batch.error)
+            yield ipc_to_table(batch.arrow_ipc)
+
+
+class KeyValueClient:
+    """KeyValue service (ydb_keyvalue_v1 analog over KeyValue tablets)."""
+
+    def __init__(self, driver: Driver):
+        self.driver = driver
+
+    def create_volume(self, path: str):
+        resp = self.driver._call(
+            "/ydb_tpu.KeyValue/CreateVolume",
+            pb.KvVolumeRequest(path=path), pb.KvVolumeResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+
+    def drop_volume(self, path: str):
+        resp = self.driver._call(
+            "/ydb_tpu.KeyValue/DropVolume",
+            pb.KvVolumeRequest(path=path), pb.KvVolumeResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+
+    def write(self, volume: str, key: str, value: bytes):
+        resp = self.driver._call(
+            "/ydb_tpu.KeyValue/ExecuteTransaction",
+            pb.KvWriteRequest(volume=volume, key=key, value=value),
+            pb.KvWriteResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+
+    def read(self, volume: str, key: str) -> bytes | None:
+        resp = self.driver._call(
+            "/ydb_tpu.KeyValue/Read",
+            pb.KvReadRequest(volume=volume, key=key),
+            pb.KvReadResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.value if resp.found else None
+
+    def list_range(self, volume: str, lo: str = "", hi: str = "",
+                   limit: int = 0) -> list[tuple[str, bytes]]:
+        req = pb.KvListRangeRequest(volume=volume, to=hi, limit=limit)
+        setattr(req, "from", lo)
+        resp = self.driver._call("/ydb_tpu.KeyValue/ListRange", req,
+                                 pb.KvListRangeResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return [(p.key, p.value) for p in resp.pairs]
+
+    def delete_range(self, volume: str, lo: str = "",
+                     hi: str = "") -> int:
+        req = pb.KvDeleteRangeRequest(volume=volume, to=hi)
+        setattr(req, "from", lo)
+        resp = self.driver._call("/ydb_tpu.KeyValue/DeleteRange", req,
+                                 pb.KvDeleteRangeResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.deleted
+
+    def rename(self, volume: str, old_key: str, new_key: str) -> bool:
+        resp = self.driver._call(
+            "/ydb_tpu.KeyValue/Rename",
+            pb.KvRenameRequest(volume=volume, old_key=old_key,
+                               new_key=new_key),
+            pb.KvRenameResponse)
+        if resp.error:
+            raise ApiError(resp.error)
+        return resp.renamed

@@ -53,6 +53,7 @@ lowering ``grouped_sum_multi``, the per-aggregate one ``grouped_sum``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import statistics
@@ -125,7 +126,7 @@ def _steady(shard) -> None:
     shard.resident.drain(timeout=300.0)
 
 
-def _lineitem_shard(name: str, sf: float, block_rows: int, device,
+def lineitem_shard(name: str, sf: float, block_rows: int, device,
                     data=None):
     """TPC-H lineitem at ``sf`` (seed 5, or the caller's ``data``) in one
     uncompacted ColumnShard on ``device``; returns (shard, rows)."""
@@ -541,29 +542,80 @@ def bench_streaming(rows: int, chunk_rows: int, iters: int,
     return out
 
 
+#: timed repetitions of a profiled statement's trace work in
+#: :func:`bench_profile_overhead`
+TRACE_REPS = 2000
+
+
+def _trace_work(shard, prog) -> tuple[list, int]:
+    """What profiling adds to one warm scan of ``prog``, counted: the
+    spans a profiled scan records under its root (name and attributes,
+    in order) and the conveyor tasks that carried its trace onto a
+    worker (``tracing.wrap_current`` calls that bound a span)."""
+    from ydb_tpu_torch.obs import profile as profile_mod
+    from ydb_tpu_torch.obs import tracing
+
+    wrap = tracing.wrap_current
+    wraps = [0]
+
+    def counting(fn):
+        out = wrap(fn)
+        wraps[0] += out is not fn
+        return out
+
+    tracer = tracing.Tracer()
+    tracing.wrap_current = counting
+    try:
+        with profile_mod.profiled("q1", tracer=tracer) as h:
+            shard.scan(prog)
+    finally:
+        tracing.wrap_current = wrap
+    spans = [(s.name, dict(s.attrs))
+             for s in tracer.spans_for(h.profile.trace_id)
+             if s.parent_id is not None]
+    return spans, wraps[0]
+
+
+def _noop():
+    return None
+
+
 def bench_profile_overhead(sf: float, iters: int, block_rows: int,
                            assert_within: float | None = None,
-                           device="cuda", data=None) -> dict:
+                           device="cuda", data=None, shard=None) -> dict:
     """Warm TPC-H Q1 with query profiling ON (traced root span — the
     session's default-on state: spans, stage timers, probe attrs,
     profile assembly) vs OFF (no active trace, the YDB_TPU_TORCH_PROFILE=0
     path), plus a third side with the data-movement timeline ring
     enabled (YDB_TPU_TORCH_TIMELINE=1 state). ``assert_within`` fails the
-    bench when the ON side exceeds OFF by more than that fraction (the
-    default-on budget); it also asserts the timeline's contract: ZERO
-    ring events on the disabled path, and the enabled ring within 3%
-    of the profiled run.
+    bench when profiling adds more than that fraction of the OFF scan
+    (the default-on budget); it also asserts the timeline's contract:
+    ZERO ring events on the disabled path, and the enabled ring within
+    3% of the profiled run. ``shard`` is a ``(shard, rows)`` pair from
+    :func:`lineitem_shard` to scan instead of building one.
 
-    A side's overhead is the median over ``iters`` rounds of the time it
-    adds to its base in the same round, over the base's median time. A
-    warm scan's host time moves 10% from round to round on a shared
-    host, so the verdict needs tens of rounds to resolve 2%
-    (``scripts/overhead_noise.py``)."""
+    Profiling differs from OFF only in the trace machinery: the root
+    span and profile assembly (``profile.profiled``), the child spans
+    with their attributes, and the trace bound to each conveyor task.
+    So what it adds is counted and timed: the spans and bound tasks of
+    one profiled scan, replayed ``TRACE_REPS`` times under
+    ``profiled`` and again with no trace active; the difference of the
+    two sides' whole times over ``TRACE_REPS`` (a mean, so the garbage
+    collections its allocations trigger are paid in), over the OFF
+    scan's median time. A warm scan's host time moves 10% from round to
+    round on a shared host (``scripts/overhead_noise.py``), so a wall
+    A/B of the two scans resolves about 1% after 90 rounds; it is
+    reported beside the verdict (``wall_ab_pct``, the median same-round
+    ratio over the ``iters`` rounds). The ring's verdict stays the wall
+    A/B: its sites spread over the scan's layers (stage charges, byte
+    counters, the end-of-scan stream sync), and its 3% + 2 ms band
+    holds the noise of ``iters`` rounds."""
     from ydb_tpu_torch.obs import profile as profile_mod
-    from ydb_tpu_torch.obs import timeline
+    from ydb_tpu_torch.obs import timeline, tracing
     from ydb_tpu_torch.workload import tpch
 
-    shard, n = _lineitem_shard("profov", sf, block_rows, device, data)
+    shard, n = shard or lineitem_shard("profov", sf, block_rows, device,
+                                       data)
     prog = tpch.q1_program()
 
     def run_off():
@@ -587,6 +639,20 @@ def bench_profile_overhead(sf: float, iters: int, block_rows: int,
         finally:
             timeline.TIMELINE_FORCE = False
 
+    def trace_reps(on: bool) -> float:
+        """Seconds of ``TRACE_REPS`` statements' trace work."""
+        t0 = time.perf_counter()
+        for _ in range(TRACE_REPS):
+            with (profile_mod.profiled("q1") if on
+                  else contextlib.nullcontext()):
+                for name, attrs in spans:
+                    with tracing.span(name) as sp:
+                        if sp.recording:
+                            sp.set(**attrs)
+                for _ in range(wraps):
+                    tracing.wrap_current(_noop)()
+        return time.perf_counter() - t0
+
     prev_force = timeline.TIMELINE_FORCE
     timeline.TIMELINE_FORCE = False  # pin the A/B regardless of env
     try:
@@ -597,26 +663,29 @@ def bench_profile_overhead(sf: float, iters: int, block_rows: int,
         # disabled-path contract: a profiled query with the timeline
         # OFF must record nothing (the gate is the whole cost)
         rec0 = timeline.RING.recorded
-        run_on()
+        spans, wraps = _trace_work(shard, prog)
         disabled_events = timeline.RING.recorded - rec0
         times, _ = _interleaved({"off": run_off, "on": run_on,
                                  "tl": run_tl}, iters)
+        trace_s = {on: trace_reps(on) for on in (False, True)}
     finally:
         timeline.TIMELINE_FORCE = prev_force
     best = {k: min(v) for k, v in times.items()}
     median = {k: statistics.median(v) for k, v in times.items()}
-    added = _added(times, "on", "off")
+    added = (trace_s[True] - trace_s[False]) / TRACE_REPS
     tl_added = _added(times, "tl", "on")
     over, tl_over = added / median["off"], tl_added / median["on"]
     out = {
         "rows": n, "sf": sf, "rounds": len(times["off"]),
+        "trace_spans": len(spans), "trace_wraps": wraps,
         "profile_off_seconds": round(best["off"], 6),
         "profile_on_seconds": round(best["on"], 6),
         "profile_off_rows_per_sec": round(n / best["off"]),
         "profile_on_rows_per_sec": round(n / best["on"]),
         "profile_off_median_seconds": round(median["off"], 6),
         "profile_added_ms": round(1e3 * added, 4),
-        "overhead_pct": round(100 * over, 2),
+        "overhead_pct": round(100 * over, 3),
+        "wall_ab_pct": round(100 * _overhead(times, "on", "off"), 2),
         "timeline_on_seconds": round(best["tl"], 6),
         "timeline_added_ms": round(1e3 * tl_added, 4),
         "timeline_overhead_pct": round(100 * tl_over, 2),
@@ -656,7 +725,7 @@ SITE_REPS = 2000
 
 def bench_chaos_overhead(sf: float, iters: int, block_rows: int,
                          assert_within: float | None = None,
-                         device="cuda", data=None) -> dict:
+                         device="cuda", data=None, shard=None) -> dict:
     """Warm TPC-H Q1 with the chaos subsystem fully DISARMED (the
     production state: every injection site is one module-global bool
     check) vs ARMED with p=0.0 on the hot sites (the dormant-scenario
@@ -674,11 +743,13 @@ def bench_chaos_overhead(sf: float, iters: int, block_rows: int,
     reported beside it (``wall_ab_pct``, the median same-round ratio):
     a warm scan's host time moves 10% from round to round on a shared
     host, and arming adds tens of microseconds
-    (``scripts/overhead_noise.py``)."""
+    (``scripts/overhead_noise.py``). ``shard`` is a ``(shard, rows)``
+    pair from :func:`lineitem_shard` to scan instead of building one."""
     from ydb_tpu_torch import chaos
     from ydb_tpu_torch.workload import tpch
 
-    shard, n = _lineitem_shard("chaosov", sf, block_rows, device, data)
+    shard, n = shard or lineitem_shard("chaosov", sf, block_rows, device,
+                                       data)
     prog = tpch.q1_program()
 
     # p=0.0 on every site the Q1 scan crosses: the armed side pays the
@@ -788,7 +859,7 @@ def bench_leaksan_overhead(sf: float, iters: int, block_rows: int,
     from ydb_tpu_torch.runtime.conveyor import shared_conveyor
     from ydb_tpu_torch.workload import tpch
 
-    shard, n = _lineitem_shard("leakov", sf, block_rows, device, data)
+    shard, n = lineitem_shard("leakov", sf, block_rows, device, data)
     prog = tpch.q1_program()
 
     def run_off():
@@ -856,7 +927,7 @@ def bench_memsan_overhead(sf: float, iters: int, block_rows: int,
     from ydb_tpu_torch.analysis import memsan
     from ydb_tpu_torch.workload import tpch
 
-    shard, n = _lineitem_shard("memov", sf, block_rows, device, data)
+    shard, n = lineitem_shard("memov", sf, block_rows, device, data)
     prog = tpch.q1_program()
 
     def run_off():
