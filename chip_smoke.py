@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--sf 10] [--sql-sf SF] [--hits-rows 10000000]
                           [--tpcds-sf 0.1] [--storage-sql-sf 0.1]
-                          [--serving-sf 1] [--row-sf 1] [--json-out PATH]
+                          [--serving-sf 0.5] [--row-sf 0.5] [--json-out PATH]
                           [--baseline-source OLD_grouped_sum.cu]
 
 Phases, in order; any failure exits non-zero before the final line:
@@ -139,10 +139,9 @@ Phases, in order; any failure exits non-zero before the final line:
    device="cuda")`` with the reference's default ``AppConfig`` (4 shards
    a table) behind ``PgWireServer(cluster, port=0)``; a minimal protocol
    3.0 client in this script sends every statement. (1) The eight TPC-H
-   tables at ``--serving-sf`` (1) are created over the wire and loaded
+   tables at ``--serving-sf`` (0.5) are created over the wire and loaded
    through ``ShardedTable.insert`` (the reference's bulk path); the 22
-   queries run over pgwire, first and warm (median of ``SERVING_WARM``,
-   one warm run where the first took over ``SERVING_SLOW_FIRST_S``),
+   queries run over pgwire, first and warm (``SERVING_WARM`` runs),
    each equal to ``execute_plan`` over host ``ColumnSource``s of the same
    tables (floats rtol 1e-12, everything else byte-equal); one
    ``{"serving_sql": ...}`` line per query (executor, first and warm
@@ -241,8 +240,8 @@ Phases, in order; any failure exits non-zero before the final line:
 13. The row store (``ydb_tpu_torch/datashard``, ``tx/mediator.py``, the
    row DML and interactive transactions of ``kqp/session.py``), in a
    Cluster over a ``DirBlobStore`` on the card. Load: TPC-H at
-   ``--row-sf`` (default ``ROW_SF`` = 1) with ``orders`` as a row table of
-   ``ROW_SHARDS`` DataShards (1,500,000 rows in INSERT batches of
+   ``--row-sf`` (default ``ROW_SF`` = 0.5) with ``orders`` as a row table
+   of ``ROW_SHARDS`` DataShards (750,000 rows in INSERT batches of
    ``ROW_LOAD_BATCH``; the load rate printed), customer and lineitem as
    column tables. Analytics, first (the row table walked, as after a
    commit), warm (its source reused) and once under syncsan (0 captures,
@@ -257,10 +256,9 @@ Phases, in order; any failure exits non-zero before the final line:
    kernel calls on both lowerings held against the plain versions (not
    counted). Transactions on ``accounts`` (``ACCOUNTS`` rows in
    ``ACCOUNT_SHARDS`` shards, a secondary index on branch):
-   ``TX_SESSIONS`` sessions on threads run up to ``TX_ROUNDS`` rounds of
+   ``TX_SESSIONS`` sessions on threads run ``TX_ROUNDS`` rounds of
    ``TX_PER_ROUND`` interactive transfers (BEGIN, two UPDATEs, COMMIT,
-   retried on abort; a round past ``TX_MIN_ROUNDS`` starts only while the
-   phase is under ``ROW_TX_UNTIL_S``) with autocommit INSERT / UPDATE /
+   retried on abort) with autocommit INSERT / UPDATE /
    DELETE and index lookups between; SUM(balance) on the card after
    every round never changes (its warm read builds, captures and compiles
    nothing); the balances at the end equal a serial replay of the
@@ -329,12 +327,61 @@ Phases, in order; any failure exits non-zero before the final line:
    ``GRPC_RL_CALLS`` RateLimiter acquisitions grant at most burst + rate x
    elapsed + 1; a Cms config reads back with its version, a stale one is
    refused; health GOOD; a second server with ``auth_tokens`` refuses a
-   bad ticket (``UNAUTHENTICATED``); a Topic and a KeyValue RPC answer
-   ``UNIMPLEMENTED`` naming ROADMAP.md queue A items 11 and 12. (6)
+   bad ticket (``UNAUTHENTICATED``); a KeyValue RPC answers
+   ``UNIMPLEMENTED`` naming ROADMAP.md queue A item 12. (6)
    ``GRPC_CLIENTS`` client threads send q6 and q33 for ``GRPC_LOAD_S``,
    every answer equal to (2): statements/s and p50/p99 on the client's
-   clock. One ``{"grpc": ...}`` line with each step's seconds, printed
+   clock. (7) The node's first maintenance pass (``run_background`` under
+   the server's lock, as ``cli.py serve``'s loop runs it; on a store just
+   booted it sketches every column table for statistics); phase 16 goes
+   on on this node. One ``{"grpc": ...}`` line with each step's seconds, printed
    before the phase's time is asserted. Under ``GRPC_BUDGET_S`` (60 s).
+16. Streaming (``topic/``, changefeeds, ``replication.py``, ``fq/``,
+   ``api/kafka.py``, ``api/sqs.py``, the gRPC Topic service, ``cli.py``);
+   it runs after phase 15, on phase 15's node (a Cluster booted from
+   phase 10's store behind ``make_server``), with a ``KafkaServer`` and
+   an ``SqsHttpServer`` added (port 0, the gRPC server's lock). (1)
+   ``STREAM_EVENTS`` ClickBench-shaped JSON events (URL,
+   ResolutionWidth, EventTime of the port's generator at
+   ``STREAM_SEED``, in event-time order, ``STREAM_LATE_EVENTS`` of them
+   stamped in the first window and written after 60% of the rest) into a
+   ``STREAM_PARTITIONS``-partition topic in ``STREAM_WRITE_BATCH``-message
+   writes with producer seqnos; ``STREAM_SQL`` (GROUP BY URL) as a
+   ``StreamingQuery`` on the card in ``STREAM_BATCH_LIMIT``-rows-a-
+   partition polls, every micro-batch over more than 512 groups, launch
+   counters zeroed before and read after both runs: once on the fused
+   lowering (default routing: a fused dispatch a batch; poll
+   ``STREAM_CRASH_POLL`` crashes between its sink write and its
+   checkpoint, and the query rebuilt from the checkpoint replays it with
+   every emission once in the sink) and once on the per-aggregate
+   lowering with fusion off; both kernels must launch
+   (``stream_launches``); each ``results()`` equals the group-by on the
+   host of all events (integers exact); one micro-batch's kernel calls on
+   both lowerings held against the plain versions (not counted); a
+   tumbling-window query (``STREAM_WINDOW_US``, ``STREAM_LATENESS_US``)
+   emits each (window, URL) once, equal to the host's group-by of the
+   on-time events, and counts the late ones. (2) A ``changefeed = on``
+   row table of ``STREAM_CDC_ROWS`` rows in ``STREAM_CDC_SHARDS`` shards
+   takes an UPSERT, an UPDATE and a DELETE; ``run_background``'s
+   ``cdc_shipped`` sums to the changes made; a ``Replicator`` tails the
+   changefeed into a replica whose ``SELECT`` on the card equals the
+   source's; a change whose ack is lost, re-shipped, is dropped by its
+   producer seqno. (3) ``STREAM_KAFKA_MSGS`` keyed messages in Produce
+   v2 batches of ``STREAM_KAFKA_BATCH`` through a minimal Kafka client,
+   fetched back equal; a consumer group's OffsetCommit read back by
+   OffsetFetch; a bad CRC refused. (4) SQS: CreateQueue,
+   ``STREAM_SQS_MSGS`` SendMessage, ReceiveMessage and DeleteMessage; a
+   message left undeleted past its ``STREAM_SQS_LEASE_S`` lease comes
+   back; the queue ends empty. (5) A gRPC Topic Write/Read/Commit round
+   trip of ``STREAM_GRPC_MSGS`` messages; a StreamRead of the changefeed
+   equal to a direct read; the port CLI's ``topic write`` and ``topic
+   read`` in process. (6) The fronts and the node stop; a Cluster
+   booted again from the directory reads the changefeed's offsets and
+   the replica's commits back. One ``{"streaming": ...}`` line with each
+   step's seconds, printed before the phase's time is asserted. Under
+   ``STREAM_BUDGET_S`` (45 s).
+
+Phases run 1-12, 14, 15, 16, 13.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
@@ -347,9 +394,11 @@ import collections
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -2430,17 +2479,16 @@ def sharded_sql(sql_sf, root, dev, out) -> list:
     return sql_rows
 
 
-#: TPC-H scale of phase 10's serving path (SF-10 is phase 9's; the cut to
-#: SF-1 keeps the 22 queries, first and warm, inside the time budget)
-SERVING_SF = 1.0
+#: TPC-H scale of phase 10's serving path, whose store phases 11, 12, 14,
+#: 15 and 16 boot again (SF-10 is phase 9's; SF-1 took the whole script
+#: to 1,245.8 s of its 1,200 s on a slow host, phase 10 181 s of it)
+SERVING_SF = 0.5
 #: hits rows of phase 10's ClickBench: FUSE_MAX_ROWS, the largest table
 #: whole-plan fusion (and so the batcher) takes
 SERVING_HITS_ROWS = 1 << 17
-#: warm runs per TPC-H query over pgwire (median reported), one where
-#: the first run took over SERVING_SLOW_FIRST_S (q5: its cost-based join
-#: order joins customer and supplier on the nation key first)
-SERVING_WARM = 3
-SERVING_SLOW_FIRST_S = 2.0
+#: warm runs per TPC-H query over pgwire (one: each more run of the 21
+#: fast queries cost the step about 12 s on a slow host)
+SERVING_WARM = 1
 #: the batched tier's window and group cap (YDB_TPU_TORCH_BATCH_*)
 BATCH_WINDOW_MS = 2.0
 BATCH_MAX = 8
@@ -2860,7 +2908,7 @@ def serving_tpch(cluster, srv, sf, dev, warm=SERVING_WARM) -> tuple:
         executor = seen[-1] if seen else "walk"
         same_wire(rows, want, cols, name, rtol=1e-12)
         warm_s = []
-        for _ in range(warm if first_s <= SERVING_SLOW_FIRST_S else 1):
+        for _ in range(warm):
             t0 = time.perf_counter()
             again, _ = cl.ok(sql)
             warm_s.append(time.perf_counter() - t0)
@@ -4687,8 +4735,9 @@ def arrow_wire(table) -> tuple:
 
 
 def grpc_boot(root, dev):
-    """A Cluster booted from ``root`` behind ``make_server(cluster,
-    port=0)`` (127.0.0.1), and a port ``Driver`` to it."""
+    """The node of phases 15 and 16: a Cluster booted from ``root`` behind
+    ``make_server(cluster, port=0)`` (127.0.0.1), a port ``Driver`` to
+    it, and the seconds the boot took; ``stop_node`` stops it."""
     from ydb_tpu_torch.api.client import Driver
     from ydb_tpu_torch.api.server import make_server
     from ydb_tpu_torch.config import AppConfig
@@ -4702,6 +4751,14 @@ def grpc_boot(root, dev):
     srv.start()
     return cluster, srv, port, Driver(f"127.0.0.1:{port}"), \
         time.perf_counter() - t0
+
+
+def stop_node(node) -> None:
+    cluster, srv, _port, drv, _boot_s = node
+    drv.close()
+    srv.stop(0)
+    srv.request_proxy.close()
+    cluster.stop()
 
 
 def grpc_query(cluster, drv, ck, want, cuda) -> dict:
@@ -4910,7 +4967,8 @@ def grpc_services(drv) -> dict:
     at most burst + rate x elapsed + 1 granted), Cms (a config set reads
     back with its version; a stale one refused), Monitoring (GOOD), Auth
     (a second server with ``auth_tokens`` refuses a bad ticket), and a
-    Topic and a KeyValue RPC answering UNIMPLEMENTED."""
+    KeyValue RPC answering UNIMPLEMENTED (phase 16 drives the Topic
+    service)."""
     import grpc
 
     from ydb_tpu_torch.api.server import pb
@@ -4969,21 +5027,15 @@ def grpc_services(drv) -> dict:
     h = drv._call("/ydb_tpu.Monitoring/HealthCheck", pb.HealthCheckRequest(),
                   pb.HealthCheckResponse)
     assert h.status == "GOOD", h
-    # Topic and KeyValue: registered, not ported
-    details = []
-    for method, req, resp in (
-            ("/ydb_tpu.Topic/Write", pb.TopicWriteRequest(topic="t"),
-             pb.TopicWriteResponse),
-            ("/ydb_tpu.KeyValue/Read", pb.KvReadRequest(volume="v"),
-             pb.KvReadResponse)):
-        try:
-            drv._call(method, req, resp)
-            raise AssertionError(f"{method} answered")
-        except grpc.RpcError as e:
-            assert e.code() == grpc.StatusCode.UNIMPLEMENTED, e
-            details.append(e.details())
-    assert "item 11" in details[0] and "item 12" in details[1], details
-    out["unimplemented"] = details
+    # KeyValue: registered, not ported
+    try:
+        drv._call("/ydb_tpu.KeyValue/Read", pb.KvReadRequest(volume="v"),
+                  pb.KvReadResponse)
+        raise AssertionError("/ydb_tpu.KeyValue/Read answered")
+    except grpc.RpcError as e:
+        assert e.code() == grpc.StatusCode.UNIMPLEMENTED, e
+        assert "item 12" in e.details(), e.details()
+        out["unimplemented"] = [e.details()]
     return out
 
 
@@ -5068,33 +5120,39 @@ def grpc_load(port, answers) -> dict:
             "p50_ms": pct(ms, 0.5), "p99_ms": pct(ms, 0.99)}
 
 
-def grpc_phase(dev, ck, root, want, tpch_rows) -> dict:
-    """Phase 15 (see the module docstring). ``root`` is phase 10's store,
-    ``want`` the wire rows of ``sanitize_statements()`` there,
-    ``tpch_rows`` the rows of each TPC-H table phase 10 loaded. On the
-    CPU (a rehearsal) no kernel is counted or checked."""
+def grpc_maintenance(cluster, srv) -> dict:
+    """Step 7: the node's first maintenance pass, under the server's lock
+    as ``cli.py serve``'s loop runs it; on a store just booted,
+    ``run_background`` sketches every column table for statistics."""
+    with srv.request_proxy.lock:
+        stats = cluster.run_background()
+    assert stats["cdc_shipped"] == 0, stats
+    return {"stats_tables": stats.get("stats_tables")}
+
+
+def grpc_phase(dev, ck, node, want, tpch_rows) -> dict:
+    """Phase 15 (see the module docstring) on ``node`` (``grpc_boot`` of
+    phase 10's store; the caller stops it), ``want`` the wire rows of
+    ``sanitize_statements()`` there, ``tpch_rows`` the rows of each
+    TPC-H table phase 10 loaded. On the CPU (a rehearsal) no kernel is
+    counted or checked."""
     cuda = dev.type == "cuda"
     t_phase = time.perf_counter()
-    steps: dict = {}
+    cluster, srv, port, drv, boot_s = node
+    steps: dict = {"boot": boot_s}
     out: dict = {}
-    cluster, srv, port, drv, steps["boot"] = grpc_boot(root, dev)
-    try:
-        for name, fn in (
-                ("query", lambda: grpc_query(cluster, drv, ck, want, cuda)),
-                ("table", lambda: grpc_table(drv)),
-                ("scheme", lambda: grpc_scheme(drv, tpch_rows)),
-                ("services", lambda: grpc_services(drv)),
-                ("auth", lambda: grpc_auth(cluster)),
-                ("load", lambda: grpc_load(port, want))):
-            t0 = time.perf_counter()
-            out[name] = fn()
-            steps[name] = time.perf_counter() - t0
-    finally:
-        drv.close()
-        srv.stop(0)
-        srv.request_proxy.close()
-        cluster.stop()
-    out["seconds"] = time.perf_counter() - t_phase
+    for name, fn in (
+            ("query", lambda: grpc_query(cluster, drv, ck, want, cuda)),
+            ("table", lambda: grpc_table(drv)),
+            ("scheme", lambda: grpc_scheme(drv, tpch_rows)),
+            ("services", lambda: grpc_services(drv)),
+            ("auth", lambda: grpc_auth(cluster)),
+            ("load", lambda: grpc_load(port, want)),
+            ("maintenance", lambda: grpc_maintenance(cluster, srv))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        steps[name] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase + boot_s
     out["steps_s"] = steps
     emit({"grpc": {
         "seconds": out["seconds"], "steps_s": steps,
@@ -5102,7 +5160,7 @@ def grpc_phase(dev, ck, root, want, tpch_rows) -> dict:
         "statement_s": out["query"]["statement_s"],
         "table": out["table"], "scheme": out["scheme"],
         "services": out["services"], "auth": out["auth"],
-        "load": out["load"]}})
+        "load": out["load"], "maintenance": out["maintenance"]}})
     log(f"grpc phase: {out['seconds']:.1f} s; Q1, Q6, q3, q33, q36 over "
         f"gRPC equal to pgwire's, {GRPC_UPSERT_ROWS} rows upserted and read "
         f"back, customer exported and imported equal, load "
@@ -5115,12 +5173,812 @@ def grpc_phase(dev, ck, root, want, tpch_rows) -> dict:
     return out
 
 
+# ---------------- phase 16: streaming ----------------
+
+#: phase 16's own time limit
+STREAM_BUDGET_S = 45.0
+#: the changefeed table: rows loaded, its DataShards (and topic
+#: partitions), the groups of its ``grp`` column, and the rows per
+#: replicator read
+STREAM_CDC_ROWS = 20_000
+STREAM_CDC_SHARDS = 4
+STREAM_CDC_GROUPS = 16
+STREAM_REPL_BATCH = 4_096
+#: ClickBench-shaped events written into the source topic, its
+#: partitions, messages per write, and the rows a partition gives a poll
+#: (4 x 12,500 = 50,000-row micro-batches, each over more than 512 URLs)
+STREAM_EVENTS = 200_000
+STREAM_PARTITIONS = 4
+STREAM_WRITE_BATCH = 1_000
+STREAM_BATCH_LIMIT = 12_500
+STREAM_SEED = 16
+#: the tumbling-window query: a week of event time a window, an hour of
+#: lateness; events stamped before the first window's end, written after
+#: the rest, arrive late
+STREAM_WINDOW_US = 7 * 86_400 * 1_000_000
+STREAM_LATENESS_US = 3_600 * 1_000_000
+STREAM_LATE_EVENTS = 8
+#: the poll of the fused run that crashes between its sink write and its
+#: checkpoint
+STREAM_CRASH_POLL = 3
+#: Kafka: keyed messages produced, messages per Produce v2 call, and the
+#: topic's partitions
+STREAM_KAFKA_MSGS = 20_000
+STREAM_KAFKA_BATCH = 500
+STREAM_KAFKA_PARTITIONS = 4
+#: SQS: messages sent, and the lease of the receive whose message is not
+#: deleted (seconds)
+STREAM_SQS_MSGS = 50
+STREAM_SQS_LEASE_S = 0.3
+#: the gRPC topic round trip's messages
+STREAM_GRPC_MSGS = 100
+
+STREAM_SQL = ("SELECT URL, count(*) AS n, sum(ResolutionWidth) AS s "
+              "FROM stream GROUP BY URL")
+
+
+def stream_schema():
+    from ydb_tpu_torch import dtypes
+
+    return dtypes.schema(("URL", dtypes.STRING, False),
+                         ("ResolutionWidth", dtypes.INT32, False),
+                         ("EventTime", dtypes.TIMESTAMP, False))
+
+
+def stream_groups(events, window_us=None) -> dict:
+    """The group-by of ``events`` (URL, ResolutionWidth, EventTime
+    arrays) on the host: {URL: (count, sum)}, or {(window start, URL):
+    (count, sum)}."""
+    url, width, t = events
+    keys = (url.tolist() if window_us is None else
+            list(zip((t // window_us * window_us).tolist(), url.tolist())))
+    out: dict = {}
+    for k, w in zip(keys, width.tolist()):
+        n, s = out.get(k, (0, 0))
+        out[k] = (n + 1, s + w)
+    return out
+
+
+def stream_cdc(cluster) -> dict:
+    """Step 2: a ``changefeed = on`` row table of ``STREAM_CDC_ROWS``
+    rows in ``STREAM_CDC_SHARDS`` shards; UPSERT, UPDATE and DELETE;
+    ``run_background`` ships every change; a ``Replicator`` tails the
+    changefeed into a replica whose rows equal the source's on the card;
+    a ship whose ack is lost, re-shipped, lands once and the replica
+    stays equal."""
+    from ydb_tpu_torch.replication import Replicator
+
+    s = cluster.session()
+    cols = "(id BIGINT NOT NULL, grp BIGINT, v BIGINT, PRIMARY KEY (id))"
+    s.execute(f"CREATE TABLE stream_src {cols} WITH (store = row, "
+              f"shards = {STREAM_CDC_SHARDS}, changefeed = on)")
+    s.execute(f"CREATE TABLE stream_dst {cols} WITH (store = row, "
+              f"shards = {STREAM_CDC_SHARDS})")
+    src = cluster.tables["stream_src"]
+    topic = cluster.topics["stream_src_changefeed"]
+    assert len(topic.partitions) == STREAM_CDC_SHARDS
+    ids = np.arange(STREAM_CDC_ROWS, dtype=np.int64)
+    want = {int(i): (int(i) % STREAM_CDC_GROUPS, int(i)) for i in ids}
+    t0 = time.perf_counter()
+    assert src.insert({"id": ids, "grp": ids % STREAM_CDC_GROUPS,
+                       "v": ids.copy()}).committed
+    cluster._invalidate_plans()
+    changes = STREAM_CDC_ROWS
+    # UPSERT 1,000 rows: half over existing ids, half new
+    up = range(STREAM_CDC_ROWS - 500, STREAM_CDC_ROWS + 500)
+    assert s.execute("UPSERT INTO stream_src VALUES " + ", ".join(
+        f"({i}, {i % STREAM_CDC_GROUPS}, {-i})" for i in up)).committed
+    for i in up:
+        want[i] = (i % STREAM_CDC_GROUPS, -i)
+    changes += len(up)
+    assert s.execute("UPDATE stream_src SET v = v + 7 WHERE grp = 3"
+                     ).committed
+    for k, (g, v) in list(want.items()):
+        if g == 3:
+            want[k] = (g, v + 7)
+            changes += 1
+    assert s.execute("DELETE FROM stream_src WHERE grp = 5").committed
+    for k in [k for k, (g, _v) in want.items() if g == 5]:
+        del want[k]
+        changes += 1
+    dml_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shipped, passes = 0, 0
+    while True:
+        n = cluster.run_background()["cdc_shipped"]
+        passes += 1
+        if not n:
+            break
+        shipped += n
+    ship_s = time.perf_counter() - t0
+    assert shipped == changes, (shipped, changes)
+    heads = [p.head_offset for p in topic.partitions]
+    assert sum(heads) == changes, heads
+    t0 = time.perf_counter()
+    rep = Replicator(topic, cluster.tables["stream_dst"], consumer="replica",
+                     batch=STREAM_REPL_BATCH)
+    applied = rep.poll()
+    apply_s = time.perf_counter() - t0
+    assert applied == changes, (applied, changes)
+
+    def rows(table):
+        r = s.execute(f"SELECT id, grp, v FROM {table} ORDER BY id")
+        return (np.asarray(r.cols["id"][0]), np.asarray(r.cols["grp"][0]),
+                np.asarray(r.cols["v"][0]))
+
+    got_src, got_dst = rows("stream_src"), rows("stream_dst")
+    keys = sorted(want)
+    for a, b in zip(got_src, (keys, [want[k][0] for k in keys],
+                              [want[k][1] for k in keys])):
+        assert np.array_equal(a, np.asarray(b, dtype=np.int64))
+    assert all(np.array_equal(a, b) for a, b in zip(got_src, got_dst))
+    # the exactly-once case: ship a new change, then re-ship it as if the
+    # ack were lost; the producer seqno drops the copy
+    assert s.execute(f"INSERT INTO stream_src VALUES "
+                     f"({STREAM_CDC_ROWS + 1000}, 1, 1)").committed
+    shard = next(sh for sh in src.shards if sh.pending_changes())
+    lost = shard.pending_changes()
+    assert src.drain_changes_to(topic) == 1
+    for ch in lost:
+        p = topic.partition_for(json.dumps(ch["key"]))
+        assert topic.partitions[p].write(
+            [{"data": "redelivered"}], producer=f"cdc/{shard.shard_id}",
+            first_seqno=ch["seq"]) == [-1]
+    assert sum(p.head_offset for p in topic.partitions) == changes + 1
+    assert rep.poll() == 1
+    got_src, got_dst = rows("stream_src"), rows("stream_dst")
+    assert all(np.array_equal(a, b) for a, b in zip(got_src, got_dst))
+    out = {"rows": STREAM_CDC_ROWS, "shards": STREAM_CDC_SHARDS,
+           "changes": changes, "cdc_shipped": shipped,
+           "background_passes": passes, "dml_s": dml_s, "ship_s": ship_s,
+           "changes_shipped_per_s": shipped / ship_s,
+           "replicated": applied, "apply_s": apply_s,
+           "replica_rows": len(got_dst[0]), "replica_equal": True,
+           "redelivery_deduplicated": True,
+           "heads": [p.head_offset for p in topic.partitions],
+           "replica_committed": [p.committed("replica")
+                                 for p in topic.partitions]}
+    log(f"stream cdc: {changes} changes shipped in {passes} background "
+        f"passes ({ship_s:.2f} s), replicated in {apply_s:.2f} s; replica "
+        "equal to the source on the card; a lost ack's re-ship dropped")
+    return out
+
+
+def stream_events(cb) -> tuple:
+    """``STREAM_EVENTS`` JSON messages of the ClickBench columns the
+    streaming query reads (URL, ResolutionWidth, EventTime): ``cb``'s
+    rows but the last ``STREAM_LATE_EVENTS`` in event-time order, with
+    ``STREAM_LATE_EVENTS`` copies of its first rows (stamped in the first
+    window) written after 60% of them, by when that window is closed.
+    Returns the messages, the on-time columns and all columns."""
+    h = cb.hits
+    order = np.argsort(h["EventTime"], kind="stable")
+    order = order[:len(order) - STREAM_LATE_EVENTS]
+    url = np.asarray([u.decode("utf-8", "surrogateescape") for u in
+                      cb.dicts["URL"].decode(h["URL"][order])])
+    width = h["ResolutionWidth"][order].astype(np.int64)
+    t = h["EventTime"][order].astype(np.int64)
+
+    def encode(cols):
+        # json.dumps of {"URL": u, "ResolutionWidth": w, "EventTime": x}
+        return ['{"URL": %s, "ResolutionWidth": %d, "EventTime": %d}'
+                % (json.dumps(u), w, x)
+                for u, w, x in zip(*(c.tolist() for c in cols))]
+
+    on_time = (url, width, t)
+    late = tuple(c[:STREAM_LATE_EVENTS] for c in on_time)
+    msgs = encode(on_time)
+    cut = len(msgs) * 6 // 10
+    msgs[cut:cut] = encode(late)
+    every = tuple(np.concatenate([a, b]) for a, b in zip(on_time, late))
+    return msgs, on_time, every
+
+
+def stream_write(topic, msgs) -> float:
+    """Message i into partition i % n, ``STREAM_WRITE_BATCH`` a write,
+    with producer seqnos; returns the seconds."""
+    n = len(topic.partitions)
+    t0 = time.perf_counter()
+    for p in range(n):
+        mine = msgs[p::n]
+        for lo in range(0, len(mine), STREAM_WRITE_BATCH):
+            offs = topic.partitions[p].write(
+                [{"data": m} for m in mine[lo:lo + STREAM_WRITE_BATCH]],
+                producer=f"gen/{p}", first_seqno=lo + 1)
+            assert offs[0] == lo and -1 not in offs, (p, lo)
+    return time.perf_counter() - t0
+
+
+def count_groups(q, groups):
+    """``q`` with its micro-batches' group counts landing in ``groups``."""
+    run = q._run_batch
+
+    def counted(rows):
+        out = run(rows)
+        groups.append(len(out))
+        return out
+
+    q._run_batch = counted
+    return q
+
+
+def stream_query(svc, name, source, sink, groups, **kw):
+    return count_groups(svc.create_query(
+        name, STREAM_SQL, stream_schema(), source, sink,
+        batch_limit=STREAM_BATCH_LIMIT, **kw), groups)
+
+
+def drain(q) -> tuple[int, float]:
+    t0, polls = time.perf_counter(), 0
+    while q.poll():
+        polls += 1
+    return polls, time.perf_counter() - t0
+
+
+def by_url(results) -> dict:
+    return {r["URL"]: (r["n"], r["s"]) for r in results}
+
+
+class _Crash(Exception):
+    """The simulated crash between a poll's sink write and checkpoint."""
+
+
+def stream_fq(cluster, dev, ck, cuda) -> dict:
+    """Step 1: the streaming query on the card. ``STREAM_EVENTS``
+    ClickBench-shaped events into a ``STREAM_PARTITIONS``-partition topic;
+    the GROUP BY URL query on the fused lowering (its poll
+    ``STREAM_CRASH_POLL`` crashes between the sink write and the
+    checkpoint; a query rebuilt from the checkpoint replays it) and on
+    the per-aggregate lowering with fusion off, launch counters zeroed
+    before and read after, every micro-batch over more than
+    ``ONEHOT_GROUP_LIMIT`` groups, ``results()`` equal to numpy; one
+    micro-batch's kernel calls held against the plain versions (not
+    counted); the tumbling-window query, each window emitted once."""
+    from ydb_tpu_torch.fq import FederatedQueryService, StreamingQuery
+    from ydb_tpu_torch.ssa import kernels
+    from ydb_tpu_torch.topic.topic import Topic
+    from ydb_tpu_torch.workload import clickbench
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    cb = clickbench.ClickBenchData(rows=STREAM_EVENTS, seed=STREAM_SEED)
+    msgs, on_time, every = stream_events(cb)
+    del cb
+    out["datagen_s"] = time.perf_counter() - t0
+    store = cluster.store
+    source = Topic("clicks", store, n_partitions=STREAM_PARTITIONS)
+    cluster.topics["clicks"] = source
+    out["write_s"] = stream_write(source, msgs)
+    out["events_written_per_s"] = len(msgs) / out["write_s"]
+    want = stream_groups(every)
+    svc = FederatedQueryService(store, device=dev)
+    sink = Topic("clicks_out", store, n_partitions=1)
+    groups: dict = {"fused": [], "peragg": []}
+    if cuda:
+        ck.reset_launches()
+    # the fused lowering (default routing: one fused dispatch a batch)
+    q = stream_query(svc, "clicks_fused", source, sink, groups["fused"])
+    t0 = time.perf_counter()
+    for _ in range(STREAM_CRASH_POLL - 1):
+        assert q.poll()
+    head = sink.partitions[0].head_offset
+    real_run = q.executor.run
+
+    def crash(_fn):
+        raise _Crash()
+
+    q.executor.run = crash
+    try:
+        q.poll()
+        raise AssertionError("the crash poll checkpointed")
+    except _Crash:
+        pass
+    q.executor.run = real_run
+    emitted = sink.partitions[0].head_offset
+    assert emitted > head
+    stats = dict(q.stats)
+    svc.delete_query("clicks_fused")
+    q = count_groups(StreamingQuery(
+        "clicks_fused", STREAM_SQL, stream_schema(), source, sink, store,
+        batch_limit=STREAM_BATCH_LIMIT, device=dev), groups["fused"])
+    assert q.poll()  # the replay: its emission is dropped as a duplicate
+    assert sink.partitions[0].head_offset == emitted
+    drain(q)
+    fused_s = time.perf_counter() - t0
+    for k in stats:
+        stats[k] += q.stats[k]
+    assert by_url(q.results()) == want
+    recs = sink.partitions[0].read(0, limit=1 << 20)
+    seqnos = [m["seqno"] for m in recs]
+    assert seqnos == list(range(1, len(recs) + 1)), seqnos[:5]
+    assert q._state()[2] == len(recs)
+    last = {}
+    for m in recs:
+        r = json.loads(m["data"])
+        last[r["URL"]] = (r["n"], r["s"])
+    assert last == want
+    out["fused"] = {"seconds": fused_s, "stats": stats,
+                    "events_per_s": stats["rows"] / fused_s,
+                    "sink_records": len(recs),
+                    "crash": {"poll": STREAM_CRASH_POLL,
+                              "emissions_dropped_on_replay": emitted - head}}
+    # the per-aggregate lowering, fusion off
+    kernels.FUSED_FORCE = False
+    try:
+        with fusion_force(False):
+            p = stream_query(svc, "clicks_peragg", source, None,
+                             groups["peragg"])
+            polls_p, peragg_s = drain(p)
+    finally:
+        kernels.FUSED_FORCE = None
+    if cuda:
+        out["launches"] = dict(ck.LAUNCHES)
+        log(f"stream launches (GROUP BY URL over {STREAM_EVENTS} events, "
+            f"fused, then per-aggregate): {out['launches']}")
+        assert all(v > 0 for v in out["launches"].values()), out["launches"]
+    assert by_url(p.results()) == want
+    out["peragg"] = {"seconds": peragg_s, "polls": polls_p,
+                     "stats": dict(p.stats),
+                     "events_per_s": p.stats["rows"] / peragg_s}
+    for lowering, gs in groups.items():
+        assert gs and min(gs) > kernels.ONEHOT_GROUP_LIMIT, (lowering, gs)
+    out["groups_per_batch"] = groups
+    # one micro-batch's kernel calls against the plain versions
+    if cuda:
+        batch = [json.loads(m) for m in msgs[:STREAM_PARTITIONS
+                                              * STREAM_BATCH_LIMIT]]
+        out["kernel_check"] = {}
+        with fusion_force(False):
+            for lowering, force, kernel in (
+                    ("fused", None, "grouped_sum_multi"),
+                    ("peragg", False, "grouped_sum")):
+                kernels.FUSED_FORCE = force
+                try:
+                    row = checked_kernel_calls(
+                        ck, lambda: StreamingQuery._run_batch(p, batch))
+                finally:
+                    kernels.FUSED_FORCE = None
+                assert row[kernel]["calls"] > 0, (lowering, row)
+                out["kernel_check"][lowering] = row
+        emit({"stream_kernel_check": out["kernel_check"]})
+    # the tumbling-window query
+    wsink = Topic("clicks_windows", store, n_partitions=1)
+    wgroups: list = []
+    w = stream_query(svc, "clicks_window", source, wsink, wgroups,
+                     window=("EventTime", STREAM_WINDOW_US,
+                             STREAM_LATENESS_US))
+    wpolls, window_s = drain(w)
+    wm = w.watermark_info()
+    assert wm["late_dropped"] == STREAM_LATE_EVENTS, wm
+    emitted_w = [json.loads(m["data"]) for m in
+                 wsink.partitions[0].read(0, limit=1 << 20)]
+    rows = emitted_w + w.results()
+    got = {(r["window_start"], r["URL"]): (r["n"], r["s"]) for r in rows}
+    assert len(got) == len(rows)  # each (window, URL) once
+    assert got == stream_groups(on_time, STREAM_WINDOW_US)
+    assert all(r["window_end"] <= wm["finalized_before"]
+               for r in emitted_w)
+    out["window"] = {"seconds": window_s, "polls": wpolls,
+                     "stats": dict(w.stats), "emitted": len(emitted_w),
+                     "open": len(rows) - len(emitted_w),
+                     "windows": len({r["window_start"] for r in rows}),
+                     "late_dropped": wm["late_dropped"],
+                     "events_per_s": w.stats["rows"] / window_s}
+    log(f"stream fq: {len(msgs)} events written at "
+        f"{out['events_written_per_s']:.0f}/s; GROUP BY URL fused "
+        f"{out['fused']['events_per_s']:.0f} events/s over "
+        f"{stats['polls']} polls ({stats['captures']} captures, "
+        f"{stats['replays']} replays), per-aggregate "
+        f"{out['peragg']['events_per_s']:.0f} events/s; each equal to "
+        f"numpy; windows {out['window']['windows']}, late "
+        f"{wm['late_dropped']}; the crashed poll's replay emitted nothing "
+        "twice")
+    return out
+
+
+def _kafka_str(s):
+    b = s.encode()
+    return struct.pack("!h", len(b)) + b
+
+
+def _kafka_bytes(b):
+    return struct.pack("!i", -1) if b is None else \
+        struct.pack("!i", len(b)) + b
+
+
+def _kafka_message_set(entries, corrupt=False):
+    out = []
+    for key, value, ts in entries:
+        body = (struct.pack("!bbq", 1, 0, ts) + _kafka_bytes(key)
+                + _kafka_bytes(value))
+        crc = zlib.crc32(body) & 0xFFFFFFFF
+        if corrupt:
+            crc ^= 0x5A5A
+        msg = struct.pack("!I", crc) + body
+        out.append(struct.pack("!qi", -1, len(msg)) + msg)
+    return b"".join(out)
+
+
+class KafkaWire:
+    """A minimal Kafka client (pre-flexible framing): one socket, one
+    request in flight."""
+
+    def __init__(self, port):
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=30)
+        self.corr = 0
+        self.calls = 0
+
+    def call(self, api_key, version, body) -> bytes:
+        self.corr += 1
+        req = (struct.pack("!hhi", api_key, version, self.corr)
+               + _kafka_str("chip_smoke") + body)
+        self.sock.sendall(struct.pack("!i", len(req)) + req)
+        (size,) = struct.unpack("!i", self._recv(4))
+        payload = self._recv(size)
+        assert struct.unpack("!i", payload[:4])[0] == self.corr
+        self.calls += 1
+        return payload[4:]
+
+    def _recv(self, n) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            assert chunk, "kafka server closed the connection"
+            buf += chunk
+        return buf
+
+    def close(self):
+        self.sock.close()
+
+
+class _KReader:
+    def __init__(self, buf):
+        self.buf, self.off = buf, 0
+
+    def take(self, fmt):
+        v = struct.unpack_from(fmt, self.buf, self.off)
+        self.off += struct.calcsize(fmt)
+        return v[0] if len(v) == 1 else v
+
+    def string(self):
+        n = self.take("!h")
+        s = self.buf[self.off:self.off + n].decode()
+        self.off += n
+        return s
+
+    def bytes_(self):
+        n = self.take("!i")
+        if n < 0:
+            return None
+        b = self.buf[self.off:self.off + n]
+        self.off += n
+        return b
+
+
+def _kafka_parse_set(buf) -> list:
+    out, off = [], 0
+    while off + 12 <= len(buf):
+        o, size = struct.unpack_from("!qi", buf, off)
+        off += 12
+        body = buf[off:off + size]
+        off += size
+        if len(body) < size:
+            break
+        assert zlib.crc32(body[4:]) & 0xFFFFFFFF == \
+            struct.unpack_from("!I", body)[0], "fetched message CRC"
+        r = _KReader(body[4:])
+        r.take("!b")
+        r.take("!b")
+        ts = r.take("!q")
+        out.append((o, ts, r.bytes_(), r.bytes_()))
+    return out
+
+
+def stream_kafka(cluster, port) -> dict:
+    """Step 3: a port ``KafkaServer``: ``STREAM_KAFKA_MSGS`` keyed
+    messages produced in Produce v2 batches and fetched back equal; a
+    consumer group's commit fetched back; a bad CRC refused."""
+    from ydb_tpu_torch.topic.topic import Topic
+
+    name = "kafka_events"
+    topic = Topic(name, cluster.store, n_partitions=STREAM_KAFKA_PARTITIONS)
+    cluster.topics[name] = topic
+    c = KafkaWire(port)
+    try:
+        meta = _KReader(c.call(3, 1, struct.pack("!i", 1)
+                               + _kafka_str(name)))
+        assert meta.take("!i") == 1  # one broker
+        sent: dict = {p: [] for p in range(STREAM_KAFKA_PARTITIONS)}
+        t0 = time.perf_counter()
+        for lo in range(0, STREAM_KAFKA_MSGS, STREAM_KAFKA_BATCH):
+            batch = [(f"user-{i % 997}".encode(), f"event {i}".encode(),
+                      (1_600_000_000 + i) * 1000)
+                     for i in range(lo, lo + STREAM_KAFKA_BATCH)]
+            part = (lo // STREAM_KAFKA_BATCH) % STREAM_KAFKA_PARTITIONS
+            body = (struct.pack("!hi", 1, 10_000) + struct.pack("!i", 1)
+                    + _kafka_str(name) + struct.pack("!i", 1)
+                    + struct.pack("!i", part)
+                    + _kafka_bytes(_kafka_message_set(batch)))
+            r = _KReader(c.call(0, 2, body))
+            assert r.take("!i") == 1 and r.string() == name
+            assert r.take("!i") == 1
+            pid, err, base = r.take("!i"), r.take("!h"), r.take("!q")
+            assert (pid, err, base) == (part, 0, len(sent[part])), \
+                (pid, err, base)
+            sent[part] += batch
+        produce_s = time.perf_counter() - t0
+        produce_calls = STREAM_KAFKA_MSGS // STREAM_KAFKA_BATCH
+        t0 = time.perf_counter()
+        fetch_calls = 0
+        for part, want in sent.items():
+            got, off = [], 0
+            while off < len(want):
+                body = (struct.pack("!iii", -1, 100, 1)
+                        + struct.pack("!i", 1) + _kafka_str(name)
+                        + struct.pack("!i", 1)
+                        + struct.pack("!iqi", part, off, 1 << 18))
+                r = _KReader(c.call(1, 2, body))
+                fetch_calls += 1
+                r.take("!i")
+                assert r.take("!i") == 1 and r.string() == name
+                assert r.take("!i") == 1
+                pid, err, hw = r.take("!i"), r.take("!h"), r.take("!q")
+                assert (pid, err, hw) == (part, 0, len(want))
+                msgs = _kafka_parse_set(r.bytes_())
+                assert msgs, (part, off)
+                got += msgs
+                off = msgs[-1][0] + 1
+            assert [(o, k, v, ts) for o, ts, k, v in got] == [
+                (i, k, v, ts) for i, (k, v, ts) in enumerate(want)], part
+        fetch_s = time.perf_counter() - t0
+        # a consumer group: commit, then fetch the commit back
+        commit = (_kafka_str("chip-group") + struct.pack("!i", -1)
+                  + _kafka_str("m") + struct.pack("!q", -1)
+                  + struct.pack("!i", 1) + _kafka_str(name)
+                  + struct.pack("!i", 1) + struct.pack("!iq", 2, 1234)
+                  + struct.pack("!h", -1))
+        r = _KReader(c.call(8, 2, commit))
+        assert r.take("!i") == 1 and r.string() == name
+        assert r.take("!i") == 1 and (r.take("!i"), r.take("!h")) == (2, 0)
+        r = _KReader(c.call(9, 1, _kafka_str("chip-group")
+                            + struct.pack("!i", 1) + _kafka_str(name)
+                            + struct.pack("!ii", 1, 2)))
+        assert r.take("!i") == 1 and r.string() == name
+        assert r.take("!i") == 1
+        assert (r.take("!i"), r.take("!q")) == (2, 1234)
+        assert topic.partitions[2].committed("chip-group") == 1234
+        # a bad CRC is refused, nothing appended
+        body = (struct.pack("!hi", 1, 10_000) + struct.pack("!i", 1)
+                + _kafka_str(name) + struct.pack("!i", 1)
+                + struct.pack("!i", 0) + _kafka_bytes(_kafka_message_set(
+                    [(None, b"bad", 1)], corrupt=True)))
+        r = _KReader(c.call(0, 2, body))
+        r.take("!i")
+        r.string()
+        r.take("!i")
+        assert (r.take("!i"), r.take("!h")) == (0, 2)  # CORRUPT_MESSAGE
+        assert topic.partitions[0].head_offset == len(sent[0])
+        calls = c.calls
+    finally:
+        c.close()
+    out = {"messages": STREAM_KAFKA_MSGS, "produce_calls": produce_calls,
+           "produce_s": produce_s,
+           "produce_calls_per_s": produce_calls / produce_s,
+           "produced_per_s": STREAM_KAFKA_MSGS / produce_s,
+           "fetch_calls": fetch_calls, "fetch_s": fetch_s,
+           "fetch_calls_per_s": fetch_calls / fetch_s,
+           "fetched_per_s": STREAM_KAFKA_MSGS / fetch_s,
+           "round_trips": calls}
+    log(f"stream kafka: {STREAM_KAFKA_MSGS} messages produced in "
+        f"{produce_calls} Produce v2 calls ({out['produced_per_s']:.0f}/s) "
+        f"and fetched back equal in {fetch_calls} ({out['fetched_per_s']:.0f}"
+        "/s); group offset committed and read back; bad CRC refused")
+    return out
+
+
+def stream_sqs(port) -> dict:
+    """Step 4: a port ``SqsHttpServer``: CreateQueue, ``STREAM_SQS_MSGS``
+    SendMessage, ReceiveMessage and DeleteMessage; a message left
+    undeleted past its ``STREAM_SQS_LEASE_S`` lease comes back; the
+    queue ends with ApproximateNumberOfMessages 0."""
+    import urllib.request
+
+    calls = [0]
+
+    def call(action, params):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/", data=json.dumps(params).encode(),
+            headers={"X-Amz-Target": f"AmazonSQS.{action}",
+                     "Content-Type": "application/x-amz-json-1.0"},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            calls[0] += 1
+            return json.loads(r.read())
+
+    def delete(m):
+        call("DeleteMessage", {"QueueUrl": url,
+                               "ReceiptHandle": m["ReceiptHandle"]})
+
+    t0 = time.perf_counter()
+    url = call("CreateQueue", {"QueueName": "chip_jobs"})["QueueUrl"]
+    for i in range(STREAM_SQS_MSGS):
+        call("SendMessage", {"QueueUrl": url, "MessageBody": f"job {i}"})
+    # one message leased for STREAM_SQS_LEASE_S and never deleted
+    (kept,) = call("ReceiveMessage", {
+        "QueueUrl": url,
+        "VisibilityTimeout": STREAM_SQS_LEASE_S})["Messages"]
+    got, again = [kept["Body"]], None
+    while True:
+        msgs = call("ReceiveMessage", {
+            "QueueUrl": url, "MaxNumberOfMessages": 10,
+            "VisibilityTimeout": 60})["Messages"]
+        if not msgs:
+            if again is not None:
+                break
+            time.sleep(STREAM_SQS_LEASE_S)  # until the lease lapses
+            continue
+        for m in msgs:
+            if m["Body"] == kept["Body"]:
+                again = m  # redelivered: its lease lapsed
+            else:
+                got.append(m["Body"])
+            delete(m)
+    assert sorted(got) == sorted(f"job {i}" for i in range(STREAM_SQS_MSGS))
+    assert again["ReceiptHandle"] != kept["ReceiptHandle"]
+    attrs = call("GetQueueAttributes", {"QueueUrl": url})["Attributes"]
+    assert attrs["ApproximateNumberOfMessages"] == "0", attrs
+    seconds = time.perf_counter() - t0
+    out = {"messages": STREAM_SQS_MSGS, "round_trips": calls[0],
+           "seconds": seconds, "round_trips_per_s": calls[0] / seconds,
+           "redelivered": kept["Body"]}
+    log(f"stream sqs: {calls[0]} round trips ({out['round_trips_per_s']:.0f}"
+        "/s); an undeleted message came back after its lease; queue empty")
+    return out
+
+
+def stream_grpc(cluster, port) -> dict:
+    """Step 5: the gRPC Topic service: Write/Read/Commit round trip and a
+    StreamRead of the changefeed topic equal to a direct read; the CLI's
+    ``topic write`` and ``topic read`` in process."""
+    import contextlib
+    import io
+
+    from ydb_tpu_torch import cli
+    from ydb_tpu_torch.api.client import Driver
+    from ydb_tpu_torch.topic.topic import Topic
+
+    cluster.topics["grpc_events"] = Topic("grpc_events", cluster.store,
+                                          n_partitions=2)
+    drv = Driver(f"127.0.0.1:{port}")
+    try:
+        tc = drv.topic_client()
+        t0 = time.perf_counter()
+        placed = [tc.write("grpc_events", f"m{i}", key=f"k{i % 7}")
+                  for i in range(STREAM_GRPC_MSGS)]
+        got = tc.read("grpc_events", "chip", limit=STREAM_GRPC_MSGS)
+        assert sorted((p, o) for p, o, _d in got) == sorted(placed)
+        assert sorted(d for _p, _o, d in got) == sorted(
+            f"m{i}".encode() for i in range(STREAM_GRPC_MSGS))
+        tops: dict = {}
+        for p, o, _d in got:
+            tops[p] = max(tops.get(p, -1), o)
+        for p, o in tops.items():
+            tc.commit("grpc_events", "chip", p, o)
+        assert tc.read("grpc_events", "chip") == []
+        rt_s = time.perf_counter() - t0
+        feed = cluster.topics["stream_src_changefeed"]
+        direct = sorted((pi, m["offset"], m["data"].encode())
+                        for pi, part in enumerate(feed.partitions)
+                        for m in part.read(0, limit=1 << 20))
+        t0 = time.perf_counter()
+        streamed = sorted(tc.stream_read("stream_src_changefeed", "grpc",
+                                         max_batch=4096,
+                                         idle_timeout_ms=300))
+        stream_s = time.perf_counter() - t0
+        assert streamed == direct, (len(streamed), len(direct))
+        ep = ["-e", f"127.0.0.1:{port}"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["topic", "write", *ep, "grpc_events", "from-cli",
+                      "--key", "cli"])
+            cli.main(["topic", "read", *ep, "grpc_events", "--consumer",
+                      "chip", "--commit"])
+        printed = buf.getvalue().splitlines()
+        assert printed[0].startswith("partition "), printed
+        assert len(printed) == 2 and printed[1].endswith("] from-cli"), \
+            printed
+    finally:
+        drv.close()
+    out = {"round_trip_messages": STREAM_GRPC_MSGS, "round_trip_s": rt_s,
+           "writes_per_s": STREAM_GRPC_MSGS / rt_s,
+           "stream_read_messages": len(streamed), "stream_read_s": stream_s,
+           "cli": printed}
+    log(f"stream grpc: {STREAM_GRPC_MSGS} Topic writes, read and commit in "
+        f"{rt_s:.2f} s; StreamRead of {len(streamed)} changefeed messages "
+        f"in {stream_s:.2f} s; CLI topic write/read: {printed}")
+    return out
+
+
+def stream_phase(dev, ck, node, root) -> dict:
+    """Phase 16 (see the module docstring) on ``node``, phase 15's
+    (``grpc_boot`` of phase 10's store ``root``); it stops the node. On
+    the CPU (a rehearsal) no kernel is counted or checked."""
+    from ydb_tpu_torch.api.kafka import KafkaServer
+    from ydb_tpu_torch.api.sqs import SqsHttpServer
+    from ydb_tpu_torch.config import AppConfig
+    from ydb_tpu_torch.engine.blobs import DirBlobStore
+    from ydb_tpu_torch.kqp.session import Cluster
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    out: dict = {}
+    t0 = time.perf_counter()
+    cluster, srv, port, _drv, _boot_s = node
+    lock = srv.request_proxy.lock
+    kafka = sqs = None
+    try:
+        kafka = KafkaServer(cluster, port=0, lock=lock).start()
+        sqs = SqsHttpServer(cluster.store, port=0, lock=lock).start()
+        steps["fronts"] = time.perf_counter() - t0
+        for name, fn in (
+                ("fq", lambda: stream_fq(cluster, dev, ck, cuda)),
+                ("cdc", lambda: stream_cdc(cluster)),
+                ("kafka", lambda: stream_kafka(cluster, kafka.port)),
+                ("sqs", lambda: stream_sqs(sqs.port)),
+                ("grpc", lambda: stream_grpc(cluster, port))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            steps[name] = time.perf_counter() - t0
+    finally:
+        t_stop = time.perf_counter()
+        for front in (kafka, sqs):
+            if front is not None:
+                front.stop()
+        stop_node(node)
+    steps["stop"] = time.perf_counter() - t_stop
+    # a Cluster booted again from the directory reads the changefeed's
+    # offsets and the replica's commits back
+    t0 = time.perf_counter()
+    again = Cluster(store=DirBlobStore(root), device=dev, config=AppConfig())
+    try:
+        feed = again.topics["stream_src_changefeed"]
+        heads = [p.head_offset for p in feed.partitions]
+        assert heads == out["cdc"]["heads"], heads
+        assert [p.committed("replica") for p in feed.partitions] == heads
+        assert not any(sh.pending_changes()
+                       for sh in again.tables["stream_src"].shards)
+    finally:
+        again.stop()
+    steps["reboot"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["steps_s"] = steps
+    emit({"streaming": {
+        "seconds": out["seconds"], "steps_s": steps,
+        "launches": out["fq"].get("launches"),
+        "cdc": out["cdc"], "fq": {k: v for k, v in out["fq"].items()
+                                  if k not in ("kernel_check",
+                                               "launches")},
+        "kafka": out["kafka"], "sqs": out["sqs"], "grpc": out["grpc"]}})
+    log(f"streaming phase: {out['seconds']:.1f} s; steps "
+        + json.dumps({k: round(v, 2) for k, v in steps.items()}))
+    assert out["seconds"] < STREAM_BUDGET_S, out["seconds"]
+    out["launches"] = out["fq"].get("launches")
+    out["kernel_check"] = out["fq"].get("kernel_check", {})
+    return out
+
+
 # ---------------- phase 13: the row store ----------------
 
 #: phase 13's own time limit (data generation included)
 ROW_STORE_BUDGET_S = 240.0
-#: TPC-H scale of phase 13 (SF-1: 1,500,000 orders rows in the row table)
-ROW_SF = 1.0
+#: TPC-H scale of phase 13 (750,000 orders rows in the row table; at
+#: SF-1 the phase took 232 s of its 240 s on a slow host, 72 s of it the
+#: reboot)
+ROW_SF = 0.5
 ROW_SEED = 42
 #: DataShards of the orders row table
 ROW_SHARDS = 8
@@ -5136,13 +5994,9 @@ LOOKUP_BRANCH = 123
 #: interactive transfers: sessions on threads, rounds, transfers a round
 #: per session (TX_SESSIONS x TX_ROUNDS x TX_PER_ROUND commits in all)
 TX_SESSIONS = 4
-TX_ROUNDS = 5
+TX_ROUNDS = 2
 TX_PER_ROUND = 5
 TX_SEED = 13
-#: a transfer round after the first TX_MIN_ROUNDS starts only while the
-#: phase's clock is under this (the reboot after them took 42-60 s)
-TX_MIN_ROUNDS = 2
-ROW_TX_UNTIL_S = 120.0
 
 _ROW_RANGE = ("WHERE o_orderdate >= DATE '1995-01-01' "
               "AND o_orderdate < DATE '1998-01-01'")
@@ -5414,13 +6268,11 @@ def transfer_worker(rc, wid, rnd, log_, errors) -> None:
         errors.append(e)
 
 
-def row_transactions(rc, t_phase) -> dict:
+def row_transactions(rc) -> dict:
     """Step 3: the interleaved transfer workload on ``accounts``; the
     autocommit UPDATE / INSERT / DELETE and the secondary-index lookup;
     SUM(balance) on the card after every round, conserved; the balances
-    at the end equal to a serial replay of the committed transfers.
-    Rounds past ``TX_MIN_ROUNDS`` start only while the phase (started at
-    ``t_phase``) is under ``ROW_TX_UNTIL_S``."""
+    at the end equal to a serial replay of the committed transfers."""
     import threading
 
     from ydb_tpu_torch.analysis import syncsan
@@ -5456,9 +6308,6 @@ def row_transactions(rc, t_phase) -> dict:
     t_tx = time.perf_counter()
     rounds = 0
     for rnd in range(TX_ROUNDS):
-        if rnd >= TX_MIN_ROUNDS and \
-                time.perf_counter() - t_phase > ROW_TX_UNTIL_S:
-            break
         rounds += 1
         # autocommit writes that keep the sum: a zero-balance account
         # comes, moves to another branch (the index follows), and goes
@@ -5560,7 +6409,7 @@ def row_store_phase(dev, ck, sf: float = ROW_SF) -> dict:
         out["launches"] = out["analytics"].pop("launches")
         out["kernel_check"] = out["analytics"].pop("kernel_check")
         answers = out["analytics"].pop("answers")
-        tx = row_transactions(rc, t_phase)
+        tx = row_transactions(rc)
         balances = tx.pop("balances")
         out["transactions"] = tx
         rc.stop()
@@ -5889,9 +6738,17 @@ def main(argv=None) -> int:
         monitor = monitor_phase(dev, ck, serving_root, want,
                                 serving["tpch_table_rows"])
 
-        # ---- phase 15: the gRPC front ----
-        grpc_out = grpc_phase(dev, ck, serving_root, want,
-                              serving["tpch_table_rows"])
+        # ---- phase 15: the gRPC front; phase 16 goes on on its node ----
+        node = grpc_boot(serving_root, dev)
+        try:
+            grpc_out = grpc_phase(dev, ck, node, want,
+                                  serving["tpch_table_rows"])
+        except BaseException:
+            stop_node(node)
+            raise
+
+        # ---- phase 16: streaming ----
+        stream = stream_phase(dev, ck, node, serving_root)
     finally:
         for root in roots:
             shutil.rmtree(root, ignore_errors=True)
@@ -5930,6 +6787,10 @@ def main(argv=None) -> int:
         row["grpc_checked_calls"] = sum(
             q[row["name"]]["calls"]
             for q in grpc_out["kernel_check"].values())
+        row["stream_launches"] = stream["launches"][row["name"]]
+        row["stream_checked_calls"] = sum(
+            q[row["name"]]["calls"]
+            for q in stream["kernel_check"].values())
         row["max_abs_err"] = max(row["max_abs_err"], *(
             q[row["name"]]["max_abs_err"]
             for q in (*serving["kernel_check"].values(),
@@ -5937,6 +6798,7 @@ def main(argv=None) -> int:
                       *chaos["resident"]["kernel_check"].values(),
                       *monitor["kernel_check"].values(),
                       *grpc_out["kernel_check"].values(),
+                      *stream["kernel_check"].values(),
                       *row_store["kernel_check"].values())))
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
@@ -5948,12 +6810,15 @@ def main(argv=None) -> int:
                   sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion,
                   tpcds=tpcds_rows, storage=storage, serving=serving,
                   sanitize=sanitize, chaos=chaos, monitor=monitor,
-                  grpc=grpc_out, row_store=row_store)
+                  grpc=grpc_out, stream=stream, row_store=row_store)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)
         with open(args.json_out, "w") as f:
             json.dump(report, f, indent=1)
+    log(f"host gauge: phase 4's warm Q1 at sf {args.sf} "
+        f"{metrics['q1_warm_s']:.4f} s; whole script "
+        f"{time.perf_counter() - STARTED:.1f} s")
     log("chip_smoke: all phases passed")
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernel_rows}))

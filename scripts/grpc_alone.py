@@ -55,8 +55,12 @@ def main(argv=None) -> int:
     print(cs.smi_line(), flush=True)
     serving = cs.serving_phase(dev, ck, args.sf, keep_root=True)
     try:
-        cs.grpc_phase(dev, ck, os.path.join(serving["root"], "main"),
-                      serving["sanitize_want"], serving["tpch_table_rows"])
+        node = cs.grpc_boot(os.path.join(serving["root"], "main"), dev)
+        try:
+            cs.grpc_phase(dev, ck, node, serving["sanitize_want"],
+                          serving["tpch_table_rows"])
+        finally:
+            cs.stop_node(node)
     finally:
         shutil.rmtree(serving["root"], ignore_errors=True)
     return 0

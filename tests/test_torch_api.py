@@ -1,11 +1,10 @@
 """The port's gRPC front (``ydb_tpu_torch/api/server.py``, ``client.py``,
 ``arrow_io.py``, ``build.py``) against the reference's.
 
-Mirrors the cases of ``tests/test_api.py`` less its two topic cases
-(topics wait for ROADMAP.md queue A item 11) and
-``test_cli_parser_smoke`` (``cli.py`` moves to item 11), the two gRPC
-cases of ``tests/test_acl.py``, the ``RequestProxy`` case of
-``tests/test_serving.py`` and
+Mirrors the cases of ``tests/test_api.py`` (its two topic cases over
+changefeed tables, and ``test_cli_parser_smoke`` against the port's
+``cli.py``), the two gRPC cases of ``tests/test_acl.py``, the
+``RequestProxy`` case of ``tests/test_serving.py`` and
 ``tests/test_stats_quoter.py::test_cbo_orders_smallest_connectable_first``.
 Each case sends the same statements through a reference server over a
 reference ``Cluster`` and a port server over a port ``Cluster`` on the
@@ -14,12 +13,14 @@ answers, the same errors, and where a result is exact the same Arrow IPC
 bytes. Wire cases: each package's client against the other's server;
 the ``.proto`` files byte-equal and the tracked ``_pb2.py`` equal to a
 fresh ``protoc`` run; ``ensure_protos()`` with no ``protoc`` anywhere;
-every Topic and KeyValue RPC of the port answering ``UNIMPLEMENTED``
-with the item that brings it, while the port's topic and key-value
-client stubs work against the reference's server. Tolerance: none."""
+every KeyValue RPC of the port answering ``UNIMPLEMENTED`` with the item
+that brings it, while the port's topic and key-value clients work
+against the reference's server; the ``topic write`` and ``topic read``
+verbs of the port's CLI against both servers. Tolerance: none."""
 
 import decimal
 import filecmp
+import json
 import os
 import shutil
 import subprocess
@@ -217,30 +218,142 @@ def test_string_alias_decodes_correctly(served):
 
 def test_session_lifecycle_and_commit_validation(served):
     """The session map drops a closed session; a topic commit with a
-    bad partition is refused. The reference serves topics (changefeed
-    tables); the port refuses the changefeed table (item 11) and answers
-    the topic RPC ``UNIMPLEMENTED``."""
+    bad partition on a live changefeed topic is refused, with the same
+    error on both servers."""
+    errors = {}
     for s in served:
         proxy = s.server.request_proxy
         q = s.driver.query_client()
         assert q.session_id in proxy.sessions
-        ddl = ("CREATE TABLE api_cf (id int64, PRIMARY KEY (id)) "
-               "WITH (store = row, changefeed = on)")
+        q.execute("CREATE TABLE api_cf (id int64, PRIMARY KEY (id)) "
+                  "WITH (store = row, changefeed = on)")
+        q.close()
         tc = s.driver.topic_client()
-        if s.name == "ref":
-            q.execute(ddl)
-            q.close()
-            for part in (-1, 99):
-                with pytest.raises(s.ApiError):
-                    tc.commit("api_cf_changefeed", "c", part, 0)
-        else:
-            with pytest.raises(s.ApiError, match="item 11"):
-                q.execute(ddl)
-            q.close()
-            with pytest.raises(grpc.RpcError) as ei:
-                tc.commit("api_cf_changefeed", "c", -1, 0)
-            assert ei.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        errors[s.name] = []
+        for part in (-1, 99):
+            with pytest.raises(s.ApiError) as ei:
+                tc.commit("api_cf_changefeed", "c", part, 0)
+            errors[s.name].append(str(ei.value))
         assert q.session_id not in proxy.sessions
+    assert errors["ref"] == errors["port"]
+
+
+def test_topic_service(served):
+    """``tests/test_api.py::test_topic_service`` on both servers: the
+    changefeed read, commit and re-read, a direct write, a write to a
+    missing topic refused; the same messages on both."""
+    got = {}
+    for s in served:
+        q = s.driver.query_client()
+        q.execute("CREATE TABLE api_tt (id int64, PRIMARY KEY (id)) "
+                  "WITH (store = row, changefeed = on)")
+        q.execute("INSERT INTO api_tt VALUES (7)")
+        q.close()
+        s.cluster.run_background()
+        tc = s.driver.topic_client()
+        msgs = tc.read("api_tt_changefeed", "app")
+        assert len(msgs) == 1
+        p, off, data = msgs[0]
+        assert b'"key": [7]' in data
+        tc.commit("api_tt_changefeed", "app", p, off)
+        assert tc.read("api_tt_changefeed", "app") == []
+        p2, off2 = tc.write("api_tt_changefeed", "hello", key="k")
+        assert off2 >= 0
+        with pytest.raises(s.ApiError):
+            tc.write("missing", "x")
+        after = tc.read("api_tt_changefeed", "app")
+        got[s.name] = ([(p, off, json.loads(data)["key"])], (p2, off2),
+                       after)
+    assert got["ref"] == got["port"]
+    assert got["port"][2] == [(got["port"][1][0], got["port"][1][1],
+                               b"hello")]
+
+
+def test_topic_streaming_sessions(served):
+    """``tests/test_api.py::test_topic_streaming_sessions`` on both
+    servers: one ack per streamed write, a duplicate seqno swallowed, an
+    auto-committing read session that ends on its idle timeout, and
+    sessions without commits that see everything again."""
+    got = {}
+    for s in served:
+        q = s.driver.query_client()
+        q.execute("CREATE TABLE api_st (id int64, PRIMARY KEY (id)) "
+                  "WITH (store = row, changefeed = on)")
+        q.close()
+        tc = s.driver.topic_client()
+        acks = tc.stream_write(
+            "api_st_changefeed",
+            [(f"m{i}".encode(), "", "prod-1", i + 1) for i in range(5)])
+        dup = tc.stream_write("api_st_changefeed",
+                              [(b"m0", "", "prod-1", 1)])
+        first = list(tc.stream_read("api_st_changefeed", "sapp",
+                                    idle_timeout_ms=300))
+        assert sorted(d for _, _, d in first) == [
+            f"m{i}".encode() for i in range(5)]
+        assert list(tc.stream_read("api_st_changefeed", "sapp",
+                                   idle_timeout_ms=200)) == []
+        again = [list(tc.stream_read("api_st_changefeed", "s2",
+                                     auto_commit=False,
+                                     idle_timeout_ms=200))
+                 for _ in range(2)]
+        assert [len(a) for a in again] == [5, 5]
+        got[s.name] = (acks, dup, sorted(first), sorted(again[0]))
+    assert got["ref"] == got["port"]
+
+
+def test_cli_parser_smoke():
+    """``tests/test_api.py::test_cli_parser_smoke`` for the port's
+    ``cli.py``: a verb without its subcommand exits non-zero, as the
+    reference's does."""
+    from ydb_tpu import cli as rcli
+
+    from ydb_tpu_torch import cli
+
+    codes = []
+    for mod in (rcli, cli):
+        with pytest.raises(SystemExit) as ei:
+            mod.main(["scheme"])  # missing subcommand
+        codes.append(ei.value.code)
+    assert codes[0] == codes[1] != 0
+
+
+def test_cli_topic_and_scheme_verbs_against_both_servers(served, capsys):
+    """The port's ``topic write``, ``topic read --commit``, ``scheme ls``
+    and ``scheme describe`` against each server print what the
+    reference's CLI prints (each CLI on its own changefeed table)."""
+    from ydb_tpu import cli as rcli
+
+    from ydb_tpu_torch import cli
+
+    outs = {}
+    for s in served:
+        ep = ["-e", f"127.0.0.1:{s.port}"]
+        for label, mod in (("ref", rcli), ("port", cli)):
+            table = f"api_cli_{label}"
+            q = s.driver.query_client()
+            q.execute(f"CREATE TABLE {table} (id int64, v string, "
+                      "PRIMARY KEY (id)) WITH (store = row, shards = 2, "
+                      "changefeed = on)")
+            q.close()
+            topic = f"{table}_changefeed"
+            mod.main(["topic", "write", *ep, topic, "hello", "--key", "a"])
+            mod.main(["topic", "read", *ep, topic, "--consumer", "c",
+                      "--commit"])
+            mod.main(["topic", "read", *ep, topic, "--consumer", "c"])
+            mod.main(["scheme", "describe", *ep, f"/{table}"])
+            outs[(s.name, label)] = capsys.readouterr().out.replace(
+                table, "T")
+        for label, mod in (("ref", rcli), ("port", cli)):
+            mod.main(["scheme", "ls", *ep, "/"])
+            outs[(s.name, label, "ls")] = capsys.readouterr().out
+    for side in ("ref", "port"):
+        assert outs[(side, "port")] == outs[(side, "ref")]
+        assert outs[(side, "port", "ls")] == outs[(side, "ref", "ls")]
+        assert "/api_cli_port" in outs[(side, "port", "ls")]
+    text = outs[("port", "port")]
+    assert text.startswith("partition ") and "] hello\n" in text
+    assert "table /T  store=row  shards=2" in text
+    assert text == outs[("ref", "ref")]
 
 
 def test_export_import_service_roundtrip(served):
@@ -628,8 +741,8 @@ def test_each_client_drives_the_other_server(served):
 
 
 def test_port_stubs_drive_the_reference_topic_and_keyvalue(served):
-    """``TopicClient`` and ``KeyValueClient`` of the port are thin stubs
-    over the wire: against the reference's server they work."""
+    """``TopicClient`` and ``KeyValueClient`` of the port are thin
+    clients over the wire: against the reference's server they work."""
     ref = served[0]
     rq = ref.driver.query_client()
     rq.execute("CREATE TABLE api_feed (id int64, PRIMARY KEY (id)) "
@@ -676,9 +789,10 @@ _NOT_PORTED_RPCS = [
     ids=[f"{s.split('.')[1]}.{r}" for s, r, _ in _NOT_PORTED_RPCS])
 def test_topic_and_keyvalue_rpcs_are_unimplemented(served, service, rpc,
                                                    spec):
-    """Each RPC of the Topic and KeyValue services stays registered on
-    the port's server and answers UNIMPLEMENTED naming the ROADMAP.md
-    queue A item that brings it (topics: 11; KeyValue: 12)."""
+    """Each RPC of the KeyValue service stays registered on the port's
+    server and answers UNIMPLEMENTED naming the ROADMAP.md queue A item
+    that brings it (12); the Topic service is served
+    (``test_topic_service``)."""
     port = served[1]
     _attr, req_cls, resp_cls = spec[:3]
     kind = spec[3] if len(spec) > 3 else "unary_unary"
@@ -694,8 +808,8 @@ def test_topic_and_keyvalue_rpcs_are_unimplemented(served, service, rpc,
         else:
             list(ch.stream_stream(method, **kw)(iter([req_cls()])))
     assert ei.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    item = "item 11" if service == "ydb_tpu.Topic" else "item 12"
-    assert item in ei.value.details(), ei.value.details()
+    assert service == "ydb_tpu.KeyValue"
+    assert "item 12" in ei.value.details(), ei.value.details()
 
 
 def test_proto_files_are_the_reference_and_pb2_is_protoc_output(tmp_path):

@@ -138,3 +138,18 @@ def test_run_clickbench_verifies_a_subset():
                                     queries=["q0", "q7", "q33"])
     assert [r[0] for r in res] == ["q0", "q7", "q33"]
     assert all(r[2] >= 1 for r in res)
+
+
+def test_clickbench_cli_verb(capsys):
+    """``tests/test_clickbench.py::test_clickbench_cli_verb`` through the
+    port's ``cli.py`` with ``--platform cpu``: ``run_clickbench`` verifies
+    each query against the numpy ``reference_answers`` (a mismatch
+    raises), and the verb prints one line per query."""
+    from ydb_tpu_torch.cli import main
+
+    main(["workload", "clickbench", "--rows", "5000", "--queries",
+          "q0,q1,q7", "--platform", "cpu"])
+    out = capsys.readouterr().out
+    assert [line.split()[0] for line in out.splitlines()] == \
+        ["q0", "q1", "q7"]
+    assert all(line.endswith("rows") for line in out.splitlines())

@@ -14,8 +14,8 @@ equal ``tests/golden_tpch.json``; a store written by either package over
 a ``DirBlobStore`` boots in the other with the same rows, dictionary
 ids and blobs; a statement builds a row table's source only when it
 reads that table (answers equal to the eager build); sequences over row
-tables answer as the reference's, and changefeeds raise a typed
-``PlanError`` naming their ROADMAP item; row shards appear in
+tables answer as the reference's, and a changefeed table gets the
+reference's topic and change records; row shards appear in
 ``tablet_counters.collect``."""
 
 import hashlib
@@ -37,7 +37,6 @@ from ydb_tpu_torch.engine.oracle import OracleTable
 from ydb_tpu_torch.kqp.session import Cluster
 from ydb_tpu_torch.obs import tablet_counters
 from ydb_tpu_torch.plan import Database, execute_plan, to_host
-from ydb_tpu_torch.sql.planner import PlanError
 from ydb_tpu_torch.workload import tpch
 from ydb_tpu_torch.workload.queries import TPCH
 
@@ -446,10 +445,11 @@ def test_store_boots_in_the_other_package(tmp_path, writer):
      "with (store = row, changefeed = on)", "item 11"),
 ])
 def test_sequences_and_changefeeds_raise_typed_plan_error(sql, item):
-    """Sequences are ported (ROADMAP.md queue A item 10, ``tablet/
-    kesus.py``): each statement over a row table answers as the
-    reference's, a missing sequence included. A changefeed still raises a
-    typed ``PlanError`` naming item 11."""
+    """Sequences (ROADMAP.md queue A item 10, ``tablet/kesus.py``) and
+    changefeeds (item 11, ``topic/``) are ported: each statement over a
+    row table answers as the reference's, a missing sequence included,
+    and a changefeed table gets the reference's topic, whose change
+    records ship as the reference's do."""
     kv = ("create table kv (k bigint not null, v bigint, "
           "primary key (k)) with (store = row)")
     if item == "item 10":
@@ -461,11 +461,16 @@ def test_sequences_and_changefeeds_raise_typed_plan_error(sql, item):
         if sql.startswith("drop"):
             assert "s1" not in port.sequences._cache
         return
-    s = Cluster(device="cpu").session()
-    s.execute(kv)
-    with pytest.raises(PlanError, match=item):
-        s.execute(sql)
-    assert "cf" not in s.cluster.tables
+    ref, port = _both([kv, sql, "insert into cf values (1), (2)",
+                       "select k from cf order by k"])
+    for c in (ref, port):
+        assert sorted(c.topics) == ["cf_changefeed"]
+        assert c.run_background()["cdc_shipped"] == 2
+    assert [(m["partition"], m["offset"], json.loads(m["data"])["new"])
+            for m in port.topics["cf_changefeed"].reader("r").read_batch()
+            ] == [(m["partition"], m["offset"], json.loads(m["data"])["new"])
+                  for m in ref.topics["cf_changefeed"].reader("r")
+                  .read_batch()]
 
 
 def test_changefeed_on_a_column_table_is_the_reference_error():

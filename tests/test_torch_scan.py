@@ -288,6 +288,14 @@ GRPC_MODULES = (
     "ydb_tpu_torch.api.server", "ydb_tpu_torch.api.client",
     "ydb_tpu_torch.blocks.arrow_bridge", "ydb_tpu_torch.runtime.console",
 )
+#: streaming: topics, changefeeds' replication, the streaming query, the
+#: Kafka and SQS fronts and the CLI (ROADMAP.md queue A item 11)
+STREAMING_MODULES = (
+    "ydb_tpu_torch.common", "ydb_tpu_torch.topic", "ydb_tpu_torch.topic.pq",
+    "ydb_tpu_torch.topic.topic", "ydb_tpu_torch.replication",
+    "ydb_tpu_torch.fq", "ydb_tpu_torch.fq.service",
+    "ydb_tpu_torch.api.kafka", "ydb_tpu_torch.api.sqs", "ydb_tpu_torch.cli",
+)
 
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
@@ -312,7 +320,7 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
            + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
            + ANALYSIS_MODULES + ROW_STORE_MODULES + MONITORING_MODULES
-           + GRPC_MODULES,))
+           + GRPC_MODULES + STREAMING_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -7,9 +7,11 @@ case of ``tests/test_viewer.py`` reads both over HTTP. Tolerance: the
 JSON bodies equal, apart from ``uptime_seconds``, the statements'
 ``duration_us`` and the process memory figures (compared by key), and
 the counters pages (compared by the names they carry). The page at
-``/viewer`` is the reference's, byte for byte. Topics come with
-streaming (ROADMAP.md queue A item 11): the reference's fixture here
-adds none, and ``/viewer/json/topics`` is ``[]`` on both sides."""
+``/viewer`` is the reference's, byte for byte. As in the reference's
+fixture, each cluster holds a one-partition topic ``ev`` with one
+message (on a manual clock, so its tablet's redo bytes are equal), which
+``/viewer/json/topics``, the cluster summary and the tablet counters
+(``pq/`` tablets) show."""
 
 import json
 import sys
@@ -20,11 +22,17 @@ import urllib.request
 import pytest
 
 import ydb_tpu.ssa
+from ydb_tpu.engine.blobs import MemBlobStore as RMemBlobStore
 from ydb_tpu.kqp.session import Cluster as RCluster
 from ydb_tpu.obs.viewer import Viewer as RViewer
+from ydb_tpu.topic.topic import Topic as RTopic
 
+from ydb_tpu_torch.engine.blobs import MemBlobStore
 from ydb_tpu_torch.kqp.session import Cluster
 from ydb_tpu_torch.obs.viewer import Viewer
+from ydb_tpu_torch.topic.topic import Topic
+
+from conftest import Clock
 
 SETUP = ("CREATE TABLE t (id int64, name string, PRIMARY KEY (id))",
          "INSERT INTO t VALUES (1, 'a'), (2, 'b')",
@@ -46,11 +54,14 @@ def reference_pallas_stub(monkeypatch):
 def served():
     """(reference viewer, port viewer) over clusters after SETUP."""
     viewers = []
-    for c, make in ((RCluster(), RViewer),
-                    (Cluster(device="cpu"), Viewer)):
+    for c, make, topic, mem in ((RCluster(), RViewer, RTopic, RMemBlobStore),
+                                (Cluster(device="cpu"), Viewer, Topic,
+                                 MemBlobStore)):
         s = c.session()
         for sql in SETUP:
             s.execute(sql)
+        c.topics["ev"] = topic("ev", mem(), n_partitions=1, now=Clock(7.0))
+        c.topics["ev"].write("m1")
         viewers.append(make(c).start())
     yield viewers
     for v in viewers:
@@ -77,7 +88,7 @@ def test_cluster_scheme_tables_topics(served):
     for d in (ref, info):
         d.pop("uptime_seconds")
     assert info == ref
-    assert info["tables"] == ["t"] and info["topics"] == []
+    assert info["tables"] == ["t"] and info["topics"] == ["ev"]
 
     ref, scheme = both(served, "/viewer/json/scheme")
     assert scheme == ref and {"path": "/t", "type": "table"} in scheme
@@ -86,7 +97,9 @@ def test_cluster_scheme_tables_topics(served):
     assert tables == ref
     assert sum(r["rows"] for r in tables if r["table_name"] == "t") == 2
 
-    assert both(served, "/viewer/json/topics") == ([], [])
+    ref, topics = both(served, "/viewer/json/topics")
+    assert topics == ref == [{"topic": "ev", "partition": 0,
+                              "start_offset": 0, "end_offset": 1}]
 
 
 def test_health_whiteboard_counters(served):
@@ -101,7 +114,7 @@ def test_health_whiteboard_counters(served):
     assert wb["memory"], "memory stats empty"
     assert sorted(wb.pop("memory")) == sorted(ref.pop("memory"))
     assert wb == ref
-    assert wb["tables"] == 1 and wb["topics"] == 0
+    assert wb["tables"] == 1 and wb["topics"] == 1
     assert any(q["kind"] == "select" for q in wb["recent_queries"])
 
     ref, counters = both(served, "/counters")
@@ -124,8 +137,10 @@ def test_tablet_counters_aggregation(served):
     rows = data["tablets"]
     assert rows and all(r["tx_committed"] <= r["tx_executed"]
                         for r in rows)
-    # no topic partitions on either side (ROADMAP.md queue A item 11)
-    assert "pq" not in {r["type"] for r in rows}
+    # the topic's one partition is a pq/ tablet on both sides
+    pq = [r for r in rows if r["type"] == "pq"]
+    assert [r["tablet_id"] for r in pq] == ["pq/ev/0"]
+    assert pq[0]["tx_committed"] == 1 and pq[0]["redo_bytes"] > 0
     for t, a in data["aggregates"].items():
         mine = [r for r in rows if r["type"] == t]
         assert a["tablets"] == len(mine)

@@ -1,8 +1,7 @@
 """api/ — the port's protocol fronts: the PostgreSQL wire server
 (``pgwire.py``) and the gRPC front (``server.py``, the client SDK in
-``client.py``, Arrow IPC result sets in ``arrow_io.py``). The Kafka and
-SQS fronts of the reference's ``ydb_tpu/api`` wait for ROADMAP.md queue
-A item 11.
+``client.py``, Arrow IPC result sets in ``arrow_io.py``), and the Kafka
+(``kafka.py``) and SQS (``sqs.py``) fronts over the cluster's topics.
 
 The gRPC pieces need ``grpc``, ``google.protobuf`` and ``pyarrow``;
 ``pgwire`` does not. Import them lazily so ``ydb_tpu_torch.api.pgwire``

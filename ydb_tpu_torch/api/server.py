@@ -13,10 +13,11 @@ module is kept in the repo, ``api/_gen``; nothing runs ``protoc``), so
 the clients of either package drive it. Statements go through the
 cluster's sessions as pgwire's do, so tenant admission, the quoter gate
 and ``device.work_lock`` apply; the server serves whatever device the
-``Cluster`` is on. The Topic and KeyValue services stay registered and
-answer every RPC ``UNIMPLEMENTED`` with a message naming the ROADMAP.md
-queue A item that brings them (topics: item 11; the KeyValue tablet:
-item 12). Where the reference clears only the plan cache after a bulk
+``Cluster`` is on. The Topic service (``Write``, ``Read``, ``Commit``,
+``StreamRead``, ``StreamWrite``) serves ``Cluster.topics`` as the
+reference's does. The KeyValue service stays registered and answers
+every RPC ``UNIMPLEMENTED`` with a message naming the ROADMAP.md queue A
+item that brings it (the KeyValue tablet: item 12). Where the reference clears only the plan cache after a bulk
 write, the port drops cached plans and compiled programs together
 (``Cluster._invalidate_plans``), as its own INSERT does: both bake
 dictionary contents in.
@@ -214,7 +215,148 @@ class RequestProxy:
             schema_version=desc.schema_version,
         )
 
-    # ---- Topic and KeyValue: registered, not ported yet ----
+    # ---- Topic ----
+
+    def _topic(self, name: str):
+        return self.cluster.topics.get(name)
+
+    def topic_write(self, request, context):
+        self.check_auth(context)
+        topic = self._topic(request.topic)
+        if topic is None:
+            return pb.TopicWriteResponse(
+                error=f"no topic {request.topic}")
+        with self.lock:
+            p, off = topic.write(
+                request.data.decode("utf-8", "surrogateescape"),
+                key=request.key or None,
+                producer=request.producer or None,
+                seqno=request.seqno if request.producer else None,
+            )
+        return pb.TopicWriteResponse(partition=p, offset=off)
+
+    def topic_read(self, request, context):
+        self.check_auth(context)
+        topic = self._topic(request.topic)
+        if topic is None:
+            return pb.TopicReadResponse(error=f"no topic {request.topic}")
+        with self.lock:
+            reader = topic.reader(request.consumer)
+            msgs = reader.read_batch(request.limit or 100)
+        return pb.TopicReadResponse(messages=[
+            pb.TopicMessage(
+                partition=m["partition"], offset=m["offset"],
+                data=m["data"].encode("utf-8", "surrogateescape"))
+            for m in msgs
+        ])
+
+    def topic_stream_read(self, request, context):
+        """Server-streaming read session (the persqueue_v1 read-session
+        analog): batches stream as data arrives; session-local read
+        positions start at the committed offsets, so two sessions of one
+        consumer do not double-deliver within themselves; auto_commit
+        durably advances the consumer."""
+        import time as _t
+
+        self.check_auth(context)
+        pos: dict[int, int] = {}
+        idle_ms = request.idle_timeout_ms
+        max_batch = request.max_batch or 100
+        last_data = _t.monotonic()
+        pending_commit: list[dict] = []
+        while context.is_active():
+            batch = []
+            error = None
+            with self.lock:
+                topic = self._topic(request.topic)
+                if topic is None:
+                    error = f"no topic {request.topic}"
+                else:
+                    if pending_commit and request.auto_commit:
+                        # commit the PREVIOUS batch only now that its
+                        # yield completed: a disconnect mid-transfer
+                        # must not lose committed-but-undelivered rows
+                        topic.reader(request.consumer).commit_batch(
+                            pending_commit)
+                        pending_commit = []
+                    for pi, part in enumerate(topic.partitions):
+                        start = pos.get(
+                            pi, part.committed(request.consumer))
+                        if part.head_offset <= start:
+                            pos[pi] = start  # idle partition: no scan
+                            continue
+                        for m in part.read(start, max_batch):
+                            batch.append(dict(m, partition=pi))
+                            start = m["offset"] + 1
+                        pos[pi] = start
+            # NEVER yield while holding the lock: a slow client's flow
+            # control would wedge every RPC on the node
+            if error is not None:
+                yield pb.TopicReadResponse(error=error)
+                return
+            if batch:
+                last_data = _t.monotonic()
+                yield pb.TopicReadResponse(messages=[
+                    pb.TopicMessage(
+                        partition=m["partition"], offset=m["offset"],
+                        data=m["data"].encode("utf-8",
+                                              "surrogateescape"))
+                    for m in batch
+                ])
+                pending_commit = batch
+            else:
+                if idle_ms and (_t.monotonic() - last_data) * 1000 > \
+                        idle_ms:
+                    break
+                _t.sleep(0.02)
+        # graceful end: the final delivered batch commits too
+        if pending_commit and request.auto_commit:
+            with self.lock:
+                topic = self._topic(request.topic)
+                if topic is not None:
+                    topic.reader(request.consumer).commit_batch(
+                        pending_commit)
+
+    def topic_stream_write(self, request_iterator, context):
+        """Bidirectional write session: one ack per item, producer
+        seqno dedup exactly as unary writes."""
+        self.check_auth(context)
+        for item in request_iterator:
+            ack = None
+            with self.lock:
+                topic = self._topic(item.topic)
+                if topic is None:
+                    ack = pb.StreamWriteAck(
+                        error=f"no topic {item.topic}")
+                else:
+                    try:
+                        p, off = topic.write(
+                            item.data.decode("utf-8", "surrogateescape"),
+                            key=item.key or None,
+                            producer=item.producer or None,
+                            seqno=item.seqno if item.producer else None,
+                        )
+                        ack = pb.StreamWriteAck(partition=p, offset=off)
+                    except Exception as e:  # noqa: BLE001
+                        ack = pb.StreamWriteAck(error=str(e))
+            # yield outside the lock (slow-client flow control)
+            yield ack
+
+    def topic_commit(self, request, context):
+        self.check_auth(context)
+        topic = self._topic(request.topic)
+        if topic is None:
+            return pb.TopicCommitResponse(
+                error=f"no topic {request.topic}")
+        if not 0 <= request.partition < len(topic.partitions):
+            return pb.TopicCommitResponse(
+                error=f"partition {request.partition} out of range")
+        with self.lock:
+            topic.partitions[request.partition].commit(
+                request.consumer, request.offset + 1)
+        return pb.TopicCommitResponse()
+
+    # ---- KeyValue: registered, not ported yet ----
 
     def not_ported(self, service: str, request, context):
         """Every RPC of a service whose module the port does not have
@@ -1085,8 +1227,6 @@ def _ancestors(path: str) -> list[str]:
 #: services of the reference's wire surface whose modules the port does
 #: not have yet: each of their RPCs answers UNIMPLEMENTED with this text
 _NOT_PORTED = {
-    "ydb_tpu.Topic": "the Topic service waits for topics in ydb_tpu_torch "
-                     "(ROADMAP.md queue A item 11)",
     "ydb_tpu.KeyValue": "the KeyValue service waits for the KeyValue "
                         "tablet in ydb_tpu_torch (ROADMAP.md queue A "
                         "item 12)",

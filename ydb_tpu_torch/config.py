@@ -10,8 +10,8 @@ gates (TFeatureFlags analog).
 
 The port's own copy of ``ydb_tpu/config.py``. The port's ``Cluster``
 gates row tables on ``enable_row_tables`` and the sys views on
-``enable_sys_views`` as the reference does; it has no changefeeds yet,
-whatever ``enable_changefeeds`` says (ROADMAP.md queue A item 11).
+``enable_sys_views`` and changefeeds on ``enable_changefeeds`` as the
+reference does.
 """
 
 from __future__ import annotations

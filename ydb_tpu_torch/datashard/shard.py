@@ -30,8 +30,8 @@ The port's own copy of ``ydb_tpu/datashard/shard.py``, over the port's
 ``tablet/executor.py``: the same tablet ids (``ds/<shard>``), local-DB
 tables (``data``, ``pending``, ``meta``, ``changes``) and JSON redo
 records, so a shard written by either package boots in the other. It
-leaves nothing out; its change records (``cdc_enabled``) have no sender
-until changefeeds come (ROADMAP.md queue A item 11).
+leaves nothing out; ``RowTable.drain_changes_to`` ships its change
+records (``cdc_enabled``) to the table's changefeed topic.
 """
 
 from __future__ import annotations

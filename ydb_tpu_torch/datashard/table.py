@@ -20,12 +20,15 @@ same (the reference walks every time), and counts its walks, seconds
 and reuses (``source_builds``, ``source_seconds``, ``source_hits``) so
 a statement can tell what its row tables cost it; ``source_of_keys``
 builds the same columns from point reads for row DML whose WHERE pins
-the key. Left out: the change sender ``drain_changes_to``, which waits
-for topics (ROADMAP.md queue A item 11).
+the key. The change sender ``drain_changes_to`` ships the same messages
+to the same partitions at the same offsets as the reference's, with the
+same producer seqnos, in one write per shard and partition where the
+reference makes one per change.
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -503,6 +506,35 @@ class RowTable:
     def enable_cdc(self) -> None:
         for s in self.shards:
             s.cdc_enabled = True
+
+    def drain_changes_to(self, topic) -> int:
+        """Change sender (change_sender*.cpp analog): ship each shard's
+        durable change queue to the changefeed topic, then ack. The
+        topic's producer-seqno dedup makes redelivery after a crash
+        between write and ack exactly-once."""
+        shipped = 0
+        for shard in self.shards:
+            changes = shard.pending_changes()
+            if not changes:
+                continue
+            # a shard's seqs are monotonic but not contiguous per
+            # partition: each message carries its own seqno
+            by_part: dict[int, list[dict]] = {}
+            for ch in changes:
+                p = topic.partition_for(json.dumps(ch["key"]))
+                by_part.setdefault(p, []).append(ch)
+            for p, chs in sorted(by_part.items()):
+                topic.partitions[p].write(
+                    [{"data": json.dumps({
+                        "key": ch["key"], "old": ch["old"],
+                        "new": ch["new"], "step": ch["step"],
+                    })} for ch in chs],
+                    producer=f"cdc/{shard.shard_id}",
+                    seqnos=[ch["seq"] for ch in chs],
+                )
+            shard.ack_changes(changes[-1]["seq"])
+            shipped += len(changes)
+        return shipped
 
     # ---- background ----
 

@@ -41,9 +41,14 @@ INSERT run over ``Cluster.sequences`` (``tablet/kesus.py``'s
 ``run_background`` shrinks a ``CachedBlobStore``'s budget when the
 process's RSS nears ``memory_soft_limit_bytes``.
 
-Left out, each for a later item of ROADMAP.md queue A, with a typed
-``PlanError`` naming it where a statement reaches it: changefeeds and
-topics (item 11; ``Cluster.topics`` stays empty); the mesh executor
+A row table created ``WITH (changefeed = on)`` gets the topic
+``<table>_changefeed`` (``topic/``, one partition a shard) in
+``Cluster.topics``, rebuilt at boot and dropped with the table;
+``run_background`` ships the shards' change records to it
+(``cdc_shipped``), as the reference does.
+
+Left out, for a later item of ROADMAP.md queue A, with a typed
+``PlanError`` naming it where a statement reaches it: the mesh executor
 (item 13).
 
 Observability and chaos: the ``kqp.plan_cache`` probe fires per plan
@@ -94,10 +99,6 @@ _P_SLOW = _probe("query.slow")
 
 # conveyor queue-depth histogram buckets (task counts, not seconds)
 _DEPTH_BOUNDS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
-
-#: what a statement that needs changefeeds is told
-CHANGEFEEDS_LATER = ("the port has no changefeeds yet (ROADMAP.md queue A "
-                     "item 11: streaming)")
 
 _TYPE_MAP = {
     "int8": dtypes.INT8, "int16": dtypes.INT16, "int32": dtypes.INT32,
@@ -263,8 +264,7 @@ class Cluster:
         self.n_shards = (n_shards if n_shards is not None
                          else self.config.n_shards)
         self.tables: dict = {}  # name -> ShardedTable | RowTable
-        # topics come with streaming (ROADMAP.md queue A item 11); the
-        # viewer and tablet counters read this empty map until then
+        #: name -> Topic (a row table's changefeed, the Kafka front's)
         self.topics: dict = {}
         #: every table's full primary key (the scheme's), for the planner
         self.primary_keys: dict[str, tuple] = {}
@@ -439,8 +439,6 @@ class Cluster:
         from ydb_tpu_torch.datashard.table import RowTable
         from ydb_tpu_torch.engine.shard import ShardConfig
 
-        if desc.changefeed:
-            raise PlanError(f"table {desc.path}: {CHANGEFEEDS_LATER}")
         shard_config = ShardConfig(
             compact_portion_threshold=self.config
             .compact_portion_threshold,
@@ -470,6 +468,14 @@ class Cluster:
         t.pre_commit = self._journal_dicts
         self.tables[name] = t
         self.primary_keys[name] = tuple(desc.primary_key)
+        if desc.changefeed:
+            from ydb_tpu_torch.topic.topic import Topic
+
+            topic = Topic(f"{name}_changefeed", self.store,
+                          n_partitions=desc.n_shards)
+            self.topics[f"{name}_changefeed"] = topic
+            t.enable_cdc()
+            t.changefeed_topic = topic
         return t
 
     def create_table(self, stmt: ast.CreateTable) -> None:
@@ -516,8 +522,6 @@ class Cluster:
             raise PlanError("changefeed requires a row-store table")
         if changefeed and not self.flags.enable_changefeeds:
             raise PlanError("changefeeds are disabled by feature flag")
-        if changefeed:
-            raise PlanError(f"WITH (changefeed = on): {CHANGEFEEDS_LATER}")
         desc = TableDescription(
             path="/" + stmt.table,
             schema=schema,
@@ -525,7 +529,7 @@ class Cluster:
             n_shards=n_shards,
             store=store_kind,
             ttl_column=opts.get("ttl_column"),
-            changefeed=False,
+            changefeed=changefeed,
             upsert=upsert,
         )
         try:
@@ -540,6 +544,9 @@ class Cluster:
 
         t = self.tables.get(stmt.table)
         prefixes = t.storage_prefixes() if t is not None else []
+        topic = self.topics.pop(f"{stmt.table}_changefeed", None)
+        if topic is not None:
+            prefixes += topic.storage_prefixes()
         try:
             # prefixes are recorded durably in the drop tx itself; the
             # boot sweep finishes deletion if we crash before it
@@ -599,14 +606,18 @@ class Cluster:
         self._invalidate_plans()
 
     def run_background(self) -> dict:
-        """One maintenance pass: table compaction/TTL, statistics
-        refresh, load-driven resharding and the counter export (the
-        conveyor/background-task plane, driven by the hosting layer).
-        ICB knobs apply here, so live tuning takes effect without a
-        restart."""
+        """One maintenance pass: CDC drains, table compaction/TTL,
+        statistics refresh, load-driven resharding and the counter export
+        (the conveyor/background-task plane, driven by the hosting
+        layer). ICB knobs apply here, so live tuning takes effect without
+        a restart."""
         threshold = self.icb.get("compact_portion_threshold")
-        stats = {"compacted": 0, "splits": 0, "merges": 0}
+        stats = {"cdc_shipped": 0, "compacted": 0, "splits": 0,
+                 "merges": 0}
         for t in self.tables.values():
+            topic = getattr(t, "changefeed_topic", None)
+            if topic is not None:
+                stats["cdc_shipped"] += t.drain_changes_to(topic)
             for s in t.shards:
                 if hasattr(s, "config"):
                     s.config.compact_portion_threshold = threshold

@@ -12,9 +12,8 @@ and folds them into per-type aggregates for the viewer and sys views.
 The port's own copy of ``ydb_tpu/obs/tablet_counters.py``, over the
 port's ``Cluster`` (``kqp/session.py``): column shards, row shards
 (``ds/``; a secondary index's shards are not walked, as in the
-reference), the scheme tablet and the coordinator. Its walk also visits
-topic partitions, which the port's cluster has none of until topics come
-(ROADMAP.md queue A item 11).
+reference), topic partitions (``pq/``), the scheme tablet and the
+coordinator.
 """
 
 from __future__ import annotations

@@ -29,9 +29,8 @@ Endpoints:
 # The port's own copy of ydb_tpu/obs/viewer.py, over the port's Cluster,
 # sys views (obs/sysview.py, host numpy columns: one array per column
 # per view), timeline (obs/timeline.py) and tablet counters
-# (obs/tablet_counters.py). /viewer/json/topics lists the cluster's
-# topics, which stay empty until streaming comes (ROADMAP.md queue A
-# item 11).
+# (obs/tablet_counters.py). /viewer/json/topics lists the offsets of
+# each partition of the cluster's topics.
 
 from __future__ import annotations
 

@@ -15,6 +15,10 @@ Versions are monotonically increasing integers supplied by the executor
 (the tablet's commit counter — the analog of the redo-log step).
 
 The port's own copy of ``ydb_tpu/tablet/localdb.py`` (no device code).
+Its scans tag each frozen part's stream with that part's own priority;
+the reference's generator expressions all read the last part's, so with
+two or more parts a key's older chain can merge ahead of its newer one
+and an erased or overwritten row comes back (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -161,10 +165,12 @@ class TableStore:
                     return
                 yield k, 0, self._chains[k]
 
-        streams = [mem()] + [
-            ((k, pi + 1, c) for k, c in p.iter_items(lo, hi))
-            for pi, p in enumerate(self._parts)
-        ]
+        def part(p, pri):
+            for k, c in p.iter_items(lo, hi):
+                yield k, pri, c
+
+        streams = [mem()] + [part(p, pi + 1)
+                             for pi, p in enumerate(self._parts)]
         cur_key = None
         cur_chain: list = []
         for k, _pri, chain in heapq.merge(*streams):
