@@ -37,9 +37,11 @@ Phases, in order; any failure exits non-zero before the final line:
    on the card. First at sf 0.01, seed 11, against the rows and digests
    pinned in ``tests/golden_tpch.json``; then at ``--sql-sf`` (default:
    ``--sf``, whose seed-42 tables the scan phase already generated), where
-   Q1, Q3, Q5, Q6, Q13 and Q18 are checked against independent numpy.
-   One ``{"sql": ...}`` line per query: first-run seconds, the median and
-   spread of three warm runs, result rows, peak device memory, the
+   Q1, Q3, Q5, Q6, Q13 and Q18 are checked against independent numpy
+   (Q1 and Q6 against phase 3's numpy answers of the same lineitem; the
+   others' answers are kept for phase 6). One ``{"sql": ...}`` line per
+   query: first-run seconds, ``SQL_WARM`` (1) warm run, result rows, peak
+   device memory, the
    launches of each CUDA kernel, and for one more warm run the device's
    busy share (``torch.profiler``) and the seconds of each layer of the
    plan walk (scans, joins, transforms; synced host clock). This phase
@@ -97,7 +99,7 @@ Phases, in order; any failure exits non-zero before the final line:
    routing (DQ, fusion, walk) and through the walk (``use_dq=False``,
    fusion off). Each result must equal the numpy ``reference_answers``
    (``verify_result``) and the walk's. One ``{"tpcds": ...}`` line per
-   query: the executor that answered, first and warm seconds of each
+   query: the executor that answered, the first run's seconds on each
    routing, peak device memory, kernel launches.
 9. The ColumnShard storage path at full size (``engine/shard.py``). Phase
    3's lineitem is written into a ``ColumnShard`` over a ``DirBlobStore``
@@ -105,14 +107,14 @@ Phases, in order; any failure exits non-zero before the final line:
    chunks (``bench.py:run_ooc``'s ShardConfig: compaction off, 1<<18-row
    portion chunks and scan blocks): ingest rows/s, bytes on disk. Q1 and
    Q6 through ``shard.scan``: cold (resident tier and block cache
-   emptied), one warm run, profiled, after every portion was promoted (the
+   emptied), one warm run after every portion was promoted (the
    resident budget keeps what fits), then with the morsel pipeline off,
    statistics off and the resident tier off (block cache on, twice). Each
    scan equals numpy and is bit-identical to the first; one
    ``{"storage_scan": ...}`` line each with rows/s, seconds per stage
    (read/merge/stage/compute), pruning counters, resident portions, rows
-   and share, pipeline counters, peak device memory (and the busy share
-   of the warm run). Then Q6 under an ``l_orderkey`` range must
+   and share, pipeline counters, peak device memory. Then Q6 under an
+   ``l_orderkey`` range must
    skip portions and equal numpy; a second shard booted from the same
    directory (``ColumnShard.boot``) must hold the same portions and read
    Q6 back bit for bit. Phase 3's hits go into a shard too, and q33/q36
@@ -380,11 +382,50 @@ Phases, in order; any failure exits non-zero before the final line:
    the replica's commits back. One ``{"streaming": ...}`` line with each
    step's seconds, printed before the phase's time is asserted. Under
    ``STREAM_BUDGET_S`` (45 s).
+17. SQL on a degraded erasure group (``ydb_tpu_torch/blobstorage``,
+   ``runtime/failpoints.py``); it runs after phase 13. A block-4-2
+   ``GroupInfo`` of six ``VDisk``s, each an ``LsmBlobStore`` on its own
+   ``PDisk`` file (``ERASURE_CHUNK``-byte chunks, ``ERASURE_MEMTABLE``
+   memtables) in a temporary directory, a ``BSController`` with two spare
+   disks on a ``NodeWarden``, and a Cluster on the card over
+   ``GroupBlobStore(DSProxy(group))``; the codec's encodes and decodes and
+   the store's reads are counted and timed from outside. (1) Load: TPC-H at
+   ``ERASURE_SF`` (eight tables) and ``ERASURE_HITS_ROWS`` ClickBench hits
+   rows created and bulk loaded, the hulls flushed; rows/s, live bytes on
+   each disk, live and PDisk chunk bytes written over raw bytes, encode
+   MB/s, the largest part. (2) Healthy: health GOOD; launch counters
+   zeroed; Q1, Q6 and q3 under the default routing, q33 and q36 on the
+   fused and on the per-aggregate lowering (``kernels.FUSED_FORCE`` True and
+   False); both kernels must launch (``erasure_launches``); Q1, Q6 and q3
+   equal numpy (``check_sql_q1``/``_q6``/``_q3``), q33 and q36
+   ``q33_q36_answers``; then q33 and q36 with every kernel call held
+   against its plain version (``serving_kernels``; not counted). (3)
+   Degraded: disks 0 and 3 down, health DEGRADED with the reference's
+   message; the Cluster stops, the live hulls reopen from their files
+   (manifest, WAL replay) and a new Cluster boots from the degraded group;
+   every answer equals step 2's; a table created and written while
+   degraded reads back; restore MB/s, bytes decoded against bytes returned
+   and decodes per blob read. (4) Heal: ``check_and_heal`` puts both spares
+   in, health GOOD; disks 1 and 4 down, a new Cluster boots, every answer
+   equals step 2's; one more row written and read back. (5) Beyond the
+   quorum: disk 2 down too (three), health EMERGENCY; with the device
+   tiers emptied TPC-H Q6 raises the ``DSProxy``'s ``ValueError`` (or
+   ``KeyError``) and answers nothing; the disks return, ``resync``
+   repatriates the parts written while 1 and 4 were down (more than 0),
+   Q6 equals step 2's again and every written row reads back. (6)
+   Failpoints: the group store behind ``FailpointBlobStore``, ``blob.get``
+   armed ``times`` ``ERASURE_FAULTS``: that many Cluster boots fail soft
+   with ``InjectedFault``, the next answers q33 equal to step 2's;
+   ``stats()`` printed. Each step's seconds on its own line and one
+   ``{"erasure": ...}`` line, printed before the phase's time is asserted.
+   Under ``ERASURE_BUDGET_S`` (60 s).
 
-Phases run 1-12, 14, 15, 16, 13.
+Phases run 1-12, 14, 15, 16, 13, 17.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the nvidia-smi line
-and ``{"ok": true, "device": {...}}``.
+The last lines are a ``{"phase_seconds": {...}}`` JSON line (each phase's
+seconds, also in ``--json-out``), a ``{"metrics": ...}`` line, a
+``{"kernels": [...]}`` JSON line, the nvidia-smi line and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -426,6 +467,22 @@ STARTED = time.perf_counter()
 def log(msg: str) -> None:
     """A progress line, stamped with the seconds since the script began."""
     print(f"[{time.perf_counter() - STARTED:7.1f} s] {msg}", flush=True)
+
+
+class PhaseClock:
+    """Each phase's seconds of script time, keyed by phase: ``lap(name)``
+    closes the phase that ran since the previous lap (the first lap
+    counts from the script's start)."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._last = STARTED
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._last
+        self._last = now
+        log(f"phase {name}: {self.seconds[name]:.1f} s")
 
 
 def emit(obj: dict) -> None:
@@ -990,14 +1047,26 @@ def _ints(res, col):
     return np.asarray(res.cols[col][0]).astype(np.int64)
 
 
-def check_sql_q1(res, li, dicts):
-    check_q1(res, numpy_q1(li, tpch_days("1998-12-01") - 90))
+def check_sql_q1(res, li, dicts, want=None):
+    """Q1 against ``want`` (``numpy_q1`` of ``li``, computed when None)."""
+    check_q1(res, want if want is not None
+             else numpy_q1(li, tpch_days("1998-12-01") - 90))
     keys = list(zip(_decoded(res, "l_returnflag", dicts),
                     _decoded(res, "l_linestatus", dicts)))
     assert keys == sorted(keys), keys
 
 
-def check_sql_q3(res, t, dicts):
+def check_cols(res, want, dicts) -> None:
+    """Each column of ``want`` equals ``res``'s: integer arrays exactly,
+    lists of strings as ``res``'s decoded values."""
+    for col, w in want.items():
+        if isinstance(w, list):
+            assert _decoded(res, col, dicts) == w, col
+        else:
+            assert np.array_equal(_ints(res, col), w), col
+
+
+def want_sql_q3(t, dicts) -> dict:
     c, o, li = t["customer"], t["orders"], t["lineitem"]
     d = tpch_days("1995-03-15")
     cust_ok = c["c_mktsegment"] == dicts["c_mktsegment"].eq_id(b"BUILDING")
@@ -1009,14 +1078,12 @@ def check_sql_q3(res, t, dicts):
               * (100 - li["l_discount"][m]))
     keys = np.unique(oi[m])
     top = keys[np.lexsort((keys, o["o_orderdate"][keys], -rev[keys]))[:10]]
-    assert np.array_equal(_ints(res, "l_orderkey"), top + 1)
-    assert np.array_equal(_ints(res, "revenue"), rev[top])
-    assert np.array_equal(_ints(res, "o_orderdate"), o["o_orderdate"][top])
-    assert np.array_equal(_ints(res, "o_shippriority"),
-                          o["o_shippriority"][top])
+    return {"l_orderkey": top + 1, "revenue": rev[top],
+            "o_orderdate": o["o_orderdate"][top],
+            "o_shippriority": o["o_shippriority"][top]}
 
 
-def check_sql_q5(res, t, dicts):
+def want_sql_q5(t, dicts) -> dict:
     c, o, li = t["customer"], t["orders"], t["lineitem"]
     s, n, r = t["supplier"], t["nation"], t["region"]
     asia = r["r_regionkey"][r["r_name"] == dicts["r_name"].eq_id(b"ASIA")]
@@ -1032,17 +1099,11 @@ def check_sql_q5(res, t, dicts):
               * (100 - li["l_discount"][m]))
     present = np.flatnonzero(np.bincount(supp_nat[m], minlength=len(rev)))
     order = present[np.argsort(-rev[present], kind="stable")]
-    assert np.array_equal(_ints(res, "revenue"), rev[order])
-    assert _decoded(res, "n_name", dicts) == \
-        dicts["n_name"].decode(n["n_name"][order])
+    return {"revenue": rev[order],
+            "n_name": dicts["n_name"].decode(n["n_name"][order])}
 
 
-def check_sql_q6(res, li):
-    want = numpy_q6(li, tpch_days("1994-01-01"), tpch_days("1995-01-01"))
-    assert res.num_rows == 1 and int(_ints(res, "revenue")[0]) == want
-
-
-def check_sql_q13(res, t, dicts):
+def want_sql_q13(t, dicts) -> dict:
     import re
 
     o = t["orders"]
@@ -1054,11 +1115,10 @@ def check_sql_q13(res, t, dicts):
     dist = np.bincount(per_cust)
     counts = np.flatnonzero(dist)
     order = np.lexsort((-counts, -dist[counts]))
-    assert np.array_equal(_ints(res, "c_count"), counts[order])
-    assert np.array_equal(_ints(res, "custdist"), dist[counts][order])
+    return {"c_count": counts[order], "custdist": dist[counts][order]}
 
 
-def check_sql_q18(res, t, dicts):
+def want_sql_q18(t, dicts) -> dict:
     c, o, li = t["customer"], t["orders"], t["lineitem"]
     # per-order quantity sums stay far below 2^53: exact in float64
     qty = np.bincount(li["l_orderkey"] - 1, weights=li["l_quantity"],
@@ -1067,13 +1127,33 @@ def check_sql_q18(res, t, dicts):
     top = big[np.lexsort((big, o["o_orderdate"][big],
                           -o["o_totalprice"][big]))[:100]]
     cust = o["o_custkey"][top]
-    assert np.array_equal(_ints(res, "o_orderkey"), top + 1)
-    assert np.array_equal(_ints(res, "c_custkey"), cust)
-    assert np.array_equal(_ints(res, "o_orderdate"), o["o_orderdate"][top])
-    assert np.array_equal(_ints(res, "o_totalprice"), o["o_totalprice"][top])
-    assert np.array_equal(_ints(res, "total_qty"), qty[top])
-    assert _decoded(res, "c_name", dicts) == \
-        dicts["c_name"].decode(c["c_name"][cust - 1])
+    return {"o_orderkey": top + 1, "c_custkey": cust,
+            "o_orderdate": o["o_orderdate"][top],
+            "o_totalprice": o["o_totalprice"][top], "total_qty": qty[top],
+            "c_name": dicts["c_name"].decode(c["c_name"][cust - 1])}
+
+
+def check_sql_q3(res, t, dicts, want=None):
+    check_cols(res, want or want_sql_q3(t, dicts), dicts)
+
+
+def check_sql_q5(res, t, dicts, want=None):
+    check_cols(res, want or want_sql_q5(t, dicts), dicts)
+
+
+def check_sql_q6(res, li, want=None):
+    if want is None:
+        want = numpy_q6(li, tpch_days("1994-01-01"),
+                        tpch_days("1995-01-01"))
+    assert res.num_rows == 1 and int(_ints(res, "revenue")[0]) == want
+
+
+def check_sql_q13(res, t, dicts, want=None):
+    check_cols(res, want or want_sql_q13(t, dicts), dicts)
+
+
+def check_sql_q18(res, t, dicts, want=None):
+    check_cols(res, want or want_sql_q18(t, dicts), dicts)
 
 
 def layer_timers(cache):
@@ -1146,16 +1226,19 @@ def profile_sql(pq, db) -> dict:
             "layers_s": dict(sorted(totals.items()))}
 
 
-def sql_phase(tp, dev, ck):
+def sql_phase(tp, dev, ck, answers=None):
     """The 22 queries at the scale of ``tp`` on the card through the
-    walk: per query the plan time, the first run, three warm runs, result
-    rows, peak device memory (reset per query), the CUDA kernels'
+    walk: per query the plan time, the first run, ``SQL_WARM`` warm runs,
+    result rows, peak device memory (reset per query), the CUDA kernels'
     launches (counted from zero for the query's first run and read just
     after it), and where a warm run's time goes (``profile_sql``).
-    Returns the rows, the database and catalog, and each query's result
-    (the DQ phase holds its results against them). Whole-plan fusion is
-    pinned off (at sf 0.01 it would answer every ``use_dq=False``
-    statement)."""
+    Returns the rows, the database and catalog, the checks and each
+    query's result (the DQ phase holds its results against them). A
+    check's numpy answer is computed once and kept for the DQ phase's
+    check of the same query; ``answers`` are phase 3's numpy Q1 and Q6 of
+    the same lineitem, when the phase runs at its scale. Whole-plan
+    fusion is pinned off (at sf 0.01 it would answer every
+    ``use_dq=False`` statement)."""
     t = tp.tables
     for table, key in (("orders", "o_orderkey"), ("customer", "c_custkey"),
                        ("supplier", "s_suppkey")):
@@ -1167,17 +1250,33 @@ def sql_phase(tp, dev, ck):
     torch.cuda.synchronize()
     log(f"SQL: {len(t)} tables ({sum(len(next(iter(c.values()))) for c in t.values())} rows) "
         f"on the card in {time.perf_counter() - t0:.1f} s")
+    want1, want6 = answers or (None, None)
+    wants: dict = {}
+
+    def want(name, fn):
+        if name not in wants:
+            wants[name] = fn(t, tp.dicts)
+        return wants[name]
+
     checks = {
-        "q1": lambda r: check_sql_q1(r, t["lineitem"], tp.dicts),
-        "q3": lambda r: check_sql_q3(r, t, tp.dicts),
-        "q5": lambda r: check_sql_q5(r, t, tp.dicts),
-        "q6": lambda r: check_sql_q6(r, t["lineitem"]),
-        "q13": lambda r: check_sql_q13(r, t, tp.dicts),
-        "q18": lambda r: check_sql_q18(r, t, tp.dicts),
+        "q1": lambda r: check_sql_q1(r, t["lineitem"], tp.dicts, want1),
+        "q3": lambda r: check_sql_q3(r, t, tp.dicts,
+                                     want("q3", want_sql_q3)),
+        "q5": lambda r: check_sql_q5(r, t, tp.dicts,
+                                     want("q5", want_sql_q5)),
+        "q6": lambda r: check_sql_q6(r, t["lineitem"], want6),
+        "q13": lambda r: check_sql_q13(r, t, tp.dicts,
+                                       want("q13", want_sql_q13)),
+        "q18": lambda r: check_sql_q18(r, t, tp.dicts,
+                                       want("q18", want_sql_q18)),
     }
     with fusion_force(False):
         rows, results = _sql_phase_queries(tp, db, catalog, checks, dev, ck)
     return rows, db, catalog, checks, results
+
+
+#: warm runs of each query in phase 5, after its checked first run
+SQL_WARM = 1
 
 
 def _sql_phase_queries(tp, db, catalog, checks, dev, ck):
@@ -1198,7 +1297,7 @@ def _sql_phase_queries(tp, db, catalog, checks, dev, ck):
         launches = dict(ck.LAUNCHES)
         results[name] = res
         warm = []
-        for _ in range(3):
+        for _ in range(SQL_WARM):
             t0 = time.perf_counter()
             again = run_sql(pq, db, False)
             warm.append(time.perf_counter() - t0)
@@ -1511,7 +1610,7 @@ FUSION_SF = 0.02
 #: ClickBench hits rows of the fused measurement: FUSE_MAX_ROWS itself
 FUSION_HITS_ROWS = 1 << 17
 #: warm runs per statement and path
-FUSION_WARM = 10
+FUSION_WARM = 3
 #: the cutoff sweep: rows of lineitem / hits, and the TPC-H scale that
 #: gives about that many lineitem rows (the 131K point reuses FUSION_SF)
 SWEEP_POINTS = ((16384, 0.0027), (65536, 0.0109), (131072, FUSION_SF),
@@ -1977,9 +2076,6 @@ def tpcds_phase(dev, ck, sf: float = TPCDS_SF) -> list:
             res = run_sql(pq, db)
             first_s = time.perf_counter() - t0
         launches = dict(ck.LAUNCHES)
-        t0 = time.perf_counter()
-        run_sql(pq, db)
-        warm_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         tpcds.verify_result(name, res, want[name], data, pq)
         with fusion_force(False):
@@ -1988,16 +2084,13 @@ def tpcds_phase(dev, ck, sf: float = TPCDS_SF) -> list:
                 t0 = time.perf_counter()
                 walk = run_sql(wpq, db, False)
                 walk_first_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            run_sql(wpq, db, False)
-            walk_warm_s = time.perf_counter() - t0
         assert not wseen, (name, wseen)
         tpcds.verify_result(name, walk, want[name], data, wpq)
         same_result(res, walk, name)
         row = {"query": name, "sf": sf,
                "executor": seen[-1] if seen else "walk",
-               "rows": res.num_rows, "first_s": first_s, "warm_s": warm_s,
-               "walk_first_s": walk_first_s, "walk_warm_s": walk_warm_s,
+               "rows": res.num_rows, "first_s": first_s,
+               "walk_first_s": walk_first_s,
                "peak_device_bytes": peak, "tables_bytes": base,
                "query_peak_bytes": peak - base, "launches": launches,
                "equals_numpy": True, "equals_walk": True}
@@ -2113,7 +2206,7 @@ def identical(got, want, what) -> None:
             (what, col)
 
 
-def shard_scan(shard, program, n_rows, dev, label, busy=False) -> tuple:
+def shard_scan(shard, program, n_rows, dev, label) -> tuple:
     """One synced ``shard.scan``: its result and a row of what it took.
     Promotions an earlier scan queued finish before the clock starts;
     those this scan queued (heat) are counted after it, once done."""
@@ -2141,8 +2234,6 @@ def shard_scan(shard, program, n_rows, dev, label, busy=False) -> tuple:
            "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
            "group_layout": list(
                shard.last_scan_executor.partial.group_layout)}
-    if busy:
-        row.update(busy_share(lambda: shard.scan(program)))
     return out, row
 
 
@@ -2285,9 +2376,9 @@ def storage_phase(dev, ck, tp, cb, sql_sf: float = STORAGE_SQL_SF,
         # 2. Q1/Q6 in every mode, each bit-identical to the others
         scans, firsts = [], {}
 
-        def scan(name, label, busy=False):
+        def scan(name, label):
             prog, n = (q1, n_li) if name == "q1" else (q6, n_li)
-            res, row = shard_scan(shard, prog, n, dev, label, busy)
+            res, row = shard_scan(shard, prog, n, dev, label)
             row["query"] = name
             if name == "q1":
                 check_q1(res, want1)
@@ -2309,7 +2400,7 @@ def storage_phase(dev, ck, tp, cb, sql_sf: float = STORAGE_SQL_SF,
         out["resident_fill_s"] = fill_s
         out["resident_after_fill"] = shard.resident.snapshot()
         for name in ("q1", "q6"):
-            scan(name, "warm", busy=True)
+            scan(name, "warm")
         for label, kw in (("pipeline_off", {"pipeline": False}),
                           ("stats_off", {"stats": False}),
                           ("resident_off", {"resident": False})):
@@ -6438,6 +6529,486 @@ def row_store_phase(dev, ck, sf: float = ROW_SF) -> dict:
     return out
 
 
+# ---------------- phase 17: SQL on a degraded erasure group ----------------
+
+#: phase 17's own time limit, seconds of script time
+ERASURE_BUDGET_S = 60.0
+#: its data: TPC-H and ClickBench hits, made from ERASURE_SEED (a block-4-2
+#: group of a real deployment holds far more: cut for the clock)
+ERASURE_SF = 0.1
+#: 1<<19 rows keep 1,709 URL groups (the GROUP BY URL still takes the
+#: kernel tier, past 512 groups); 1<<20 rows take about twice the phase's
+#: time, too close to its budget (PERF.md, section 4)
+ERASURE_HITS_ROWS = 1 << 19
+ERASURE_SEED = 42
+ERASURE_GROUP = 17
+#: each PDisk's chunk size. A WAL record holds one part whole, and a
+#: block-4-2 part is a quarter of its blob, so a blob up to about 4 x 16 MiB
+#: fits; this cell's largest blob is a hits portion (131,072 rows of a
+#: 4-shard table, about 16 MB, so parts of about 4 MB; 8 MB at 1<<20 rows)
+ERASURE_CHUNK = 16 << 20
+#: each LSM hull's memtable: a flush (and a compaction every max_runs + 1
+#: flushes, which rewrites the whole hull) comes this many bytes apart
+ERASURE_MEMTABLE = 64 << 20
+#: the disks taken down: two (the loss block-4-2 tolerates), two others
+#: after the controller's heal, then a third beside those
+ERASURE_DOWN = (0, 3)
+ERASURE_DOWN_HEALED = (1, 4)
+ERASURE_THIRD = 2
+#: the statement that must fail beyond the quorum and answer after resync
+ERASURE_BEYOND_SQL = "q6"
+#: ``blob.get`` failpoint: this many faults, then it passes
+ERASURE_FAULTS = 2
+
+
+class MeteredCodec:
+    """An ``ErasureCodec`` whose encodes and decodes are counted and timed:
+    bytes, calls and seconds, and of the decodes those that rebuilt a
+    lost data part (restores). Everything else is the codec's."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.reset()
+
+    def reset(self) -> None:
+        self.n = collections.Counter()
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def encode(self, data):
+        t0 = time.perf_counter()
+        out = self.codec.encode(data)
+        self.n["encode_s"] += time.perf_counter() - t0
+        self.n["encodes"] += 1
+        self.n["encode_bytes"] += len(data)
+        return out
+
+    def decode(self, parts, orig_len):
+        t0 = time.perf_counter()
+        out = self.codec.decode(parts, orig_len)
+        dt = time.perf_counter() - t0
+        self.n["decodes"] += 1
+        self.n["decode_bytes"] += len(out)
+        self.n["decode_s"] += dt
+        if any(i not in parts for i in range(self.codec.data_parts)):
+            self.n["restores"] += 1
+            self.n["restore_bytes"] += len(out)
+            self.n["restore_s"] += dt
+        return out
+
+
+def metered_group_store(proxy):
+    """A ``GroupBlobStore`` over ``proxy`` that counts what it hands back:
+    whole gets, ranged gets, their bytes and the blobs read. Its
+    ``get_range`` is ``BlobStore.get_range``'s: the whole blob, sliced."""
+    from ydb_tpu_torch.blobstorage import GroupBlobStore
+
+    class Metered(GroupBlobStore):
+        def reset(self) -> None:
+            self.n = collections.Counter()
+            self.blobs: set = set()
+
+        def get(self, blob_id):
+            data = self.proxy.get(blob_id)
+            self.n["gets"] += 1
+            self.n["returned_bytes"] += len(data)
+            self.blobs.add(blob_id)
+            return data
+
+        def get_range(self, blob_id, off, length):
+            data = self.proxy.get(blob_id)[off:off + length]
+            self.n["ranged_gets"] += 1
+            self.n["returned_bytes"] += len(data)
+            self.blobs.add(blob_id)
+            return data
+
+    store = Metered(proxy)
+    store.reset()
+    return store
+
+
+def erasure_disk(root, name, written, made):
+    """A VDisk ``name`` on an LSM hull on its own PDisk file under
+    ``root``; the PDisk's chunk writes are summed into ``written``, the
+    PDisk appended to ``made``."""
+    from ydb_tpu_torch.blobstorage import VDisk
+    from ydb_tpu_torch.blobstorage.pdisk import PDisk
+    from ydb_tpu_torch.blobstorage.vdisk_lsm import LsmBlobStore
+
+    pd = PDisk(os.path.join(root, name), chunk_size=ERASURE_CHUNK)
+    made.append(pd)
+    real = pd.write
+
+    def write(chunk_id, offset, data):
+        written[name] += len(data)
+        real(chunk_id, offset, data)
+
+    pd.write = write
+    return VDisk(name, backing=LsmBlobStore(
+        pd, memtable_bytes=ERASURE_MEMTABLE))
+
+
+def lsm_live_bytes(lsm) -> int:
+    """The bytes an LSM hull holds live (newest version of each key)."""
+    seen = {k: (len(v) if v is not None else 0) for k, v in lsm.mem.items()}
+    for run in lsm.runs:
+        for key, _ci, _off, ln, is_del in run["index"]:
+            seen.setdefault(key, 0 if is_del else ln)
+    return sum(seen.values())
+
+
+def drop_device_tiers(cluster) -> None:
+    """Empty the cluster's scan block cache and every column shard's
+    block cache and resident tier, so the next scan reads the store."""
+    cluster.scan_block_cache.clear()
+    for t in cluster.tables.values():
+        for sh in getattr(t, "shards", ()):
+            for tier in ("resident", "block_cache"):
+                cache = getattr(sh, tier, None)
+                if cache is not None:
+                    cache.clear()
+
+
+def erasure_boot(store, dev):
+    from ydb_tpu_torch.config import AppConfig
+    from ydb_tpu_torch.kqp.session import Cluster
+
+    t0 = time.perf_counter()
+    cluster = Cluster(store=store, device=dev, config=AppConfig())
+    return cluster, time.perf_counter() - t0
+
+
+def erasure_statements(cluster, only=None) -> dict:
+    """TPC-H Q1, Q6 and q3 under the default routing, and q33 and q36
+    (GROUP BY URL) on the fused lowering (``kernels.FUSED_FORCE`` True)
+    and on the per-aggregate one (False); results and milliseconds."""
+    from ydb_tpu_torch.ssa import kernels
+    from ydb_tpu_torch.workload import clickbench
+    from ydb_tpu_torch.workload.queries import TPCH
+
+    stmts = [(q, TPCH[q], None) for q in ("q1", "q6", "q3")]
+    stmts += [(f"{q}_{low}", clickbench.QUERIES[q], force)
+              for low, force in (("fused", True), ("peragg", False))
+              for q in ("q33", "q36")]
+    s = cluster.session()
+    got, ms = {}, {}
+    for name, sql, force in stmts:
+        if only is not None and name not in only:
+            continue
+        kernels.FUSED_FORCE = force
+        try:
+            t0 = time.perf_counter()
+            got[name] = s.execute(sql)
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        finally:
+            kernels.FUSED_FORCE = None
+    return {"results": got, "ms": ms}
+
+
+def check_erasure_answers(got, tp, cb) -> None:
+    """Step 2's answers against numpy: Q1, Q6 and q3 by the SQL phase's
+    checks, q33 and q36 on both lowerings by ``q33_q36_answers``."""
+    from ydb_tpu_torch.workload import clickbench
+
+    li = tp.tables["lineitem"]
+    for q in ("q1", "q3"):
+        got[q].dict_aliases = {}  # output strings keep their source names
+    check_sql_q1(got["q1"], li, tp.dicts)
+    check_sql_q6(got["q6"], li)
+    check_sql_q3(got["q3"], tp.tables, tp.dicts)
+    answers = clickbench.q33_q36_answers(cb)
+    for name, col in (("q33", "c"), ("q36", "pv")):
+        for low in ("fused", "peragg"):
+            r = got[f"{name}_{low}"]
+            pairs = list(zip(cb.dicts["URL"].decode(r.cols["URL"][0]),
+                             (int(x) for x in r.cols[col][0])))
+            assert pairs == answers[name], (name, low, pairs[:3])
+
+
+def degraded_writes(cluster) -> tuple:
+    """COUNT and SUM(v) of the table phase 17 writes while disks are
+    down."""
+    res = cluster.session().execute(
+        "SELECT count(*) AS n, sum(v) AS s FROM degraded_writes")
+    return int(res.cols["n"][0][0]), int(res.cols["s"][0][0])
+
+
+def same_answers(got, want, label) -> None:
+    for name, res in got.items():
+        same_result(res, want[name], f"{label} {name}")
+
+
+def reopen_hulls(group, root, written, made) -> float:
+    """Every live disk's LSM hull closed and opened again from its PDisk
+    file alone (manifest, then WAL replay); seconds."""
+    t0 = time.perf_counter()
+    for disk in group.disks:
+        if disk.down:
+            continue
+        disk.backing.pdisk.close()
+        disk.backing = erasure_disk(root, disk.disk_id, written,
+                                    made).backing
+    return time.perf_counter() - t0
+
+
+def read_meter(codec, store) -> dict:
+    n, s = codec.n, store.n
+    return {"decodes": n["decodes"], "decode_bytes": n["decode_bytes"],
+            "decode_s": n["decode_s"], "restores": n["restores"],
+            "restore_bytes": n["restore_bytes"],
+            "restore_s": n["restore_s"],
+            "restore_mb_per_s": (n["restore_bytes"] / 1e6 / n["restore_s"]
+                                 if n["restore_s"] else None),
+            "gets": s["gets"], "ranged_gets": s["ranged_gets"],
+            "returned_bytes": s["returned_bytes"],
+            "blobs_read": len(store.blobs),
+            "read_amplification": (n["decode_bytes"] / s["returned_bytes"]
+                                   if s["returned_bytes"] else None),
+            "decodes_per_blob_read": (n["decodes"] / len(store.blobs)
+                                      if store.blobs else None)}
+
+
+def erasure_phase(dev, ck, sf: float = ERASURE_SF,
+                  hits_rows: int = ERASURE_HITS_ROWS) -> dict:
+    """Phase 17 (see the module docstring). On the CPU (a rehearsal,
+    ``ck`` None) no kernel is counted or checked."""
+    import shutil
+    import tempfile
+
+    from ydb_tpu_torch.blobstorage import DSProxy, GroupInfo
+    from ydb_tpu_torch.blobstorage.controller import BSController, NodeWarden
+    from ydb_tpu_torch.runtime.failpoints import (FailpointBlobStore,
+                                                  Failpoints, InjectedFault)
+    from ydb_tpu_torch.workload import clickbench, tpch
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="erasure_")
+    written: collections.Counter = collections.Counter()
+    made: list = []
+    steps: dict = {}
+    out: dict = {"sf": sf, "hits_rows": hits_rows, "chunk_bytes":
+                 ERASURE_CHUNK, "memtable_bytes": ERASURE_MEMTABLE}
+    clusters: list = []
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+        log(f"erasure step {name}: {steps[name]:.2f} s")
+
+    def boot():
+        c, s = erasure_boot(store, dev)
+        clusters.append(c)
+        return c, s
+
+    def stop(c):
+        c.stop()
+        clusters.remove(c)
+
+    try:
+        # ---- step 1: the group, the controller, the load ----
+        t0 = time.perf_counter()
+        tp = tpch.TpchData(sf=sf, seed=ERASURE_SEED)
+        cb = clickbench.ClickBenchData(rows=hits_rows, seed=ERASURE_SEED)
+        out["datagen_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        group = GroupInfo(ERASURE_GROUP, "block42", [
+            erasure_disk(root, f"g{ERASURE_GROUP}-d{i}", written, made)
+            for i in range(6)])
+        proxy = DSProxy(group)
+        codec = proxy.codec = MeteredCodec(proxy.codec)
+        store = metered_group_store(proxy)
+        ctl = BSController()
+        ctl.register_group(proxy)
+        warden = NodeWarden(1)
+        spares = [erasure_disk(root, f"g{ERASURE_GROUP}-spare{i}", written,
+                               made) for i in range(2)]
+        for disk in spares:
+            warden.register_spare(disk)
+        ctl.register_warden(warden)
+        cluster, _ = boot()
+        s = cluster.session()
+        raw = rows = 0
+        tables = [(t, cols, tp.schema(t), tpch.PRIMARY_KEYS[t], tp.dicts)
+                  for t, cols in tp.tables.items()]
+        tables.append(("hits", cb.hits, clickbench.HITS_SCHEMA,
+                       ("WatchID",), cb.dicts))
+        for name, cols, schema, pk, dicts in tables:
+            s.execute(create_table_sql(name, schema, pk))
+            bulk_load(cluster, name, cols, dicts)
+            raw += sum(np.asarray(v).nbytes for v in cols.values())
+            rows += len(next(iter(cols.values())))
+        for disk in group.disks:
+            disk.backing.flush()
+        load_s = time.perf_counter() - t0
+        live = {d.disk_id: lsm_live_bytes(d.backing) for d in group.disks}
+        out["load"] = {
+            "rows": rows, "raw_bytes": raw, "seconds": load_s,
+            "rows_per_s": rows / load_s, "live_bytes": live,
+            "live_over_raw": sum(live.values()) / raw,
+            "written_bytes": dict(written),
+            "written_over_raw": sum(written.values()) / raw,
+            "encodes": codec.n["encodes"],
+            "encode_bytes": codec.n["encode_bytes"],
+            "encode_s": codec.n["encode_s"],
+            "encode_mb_per_s": codec.n["encode_bytes"] / 1e6
+            / codec.n["encode_s"],
+            "largest_part": max(ln for d in group.disks
+                                for run in d.backing.runs
+                                for _k, _c, _o, ln, _d in run["index"]),
+            "blobs": len(proxy.list(""))}
+        log(f"erasure load: {rows} rows ({raw} raw bytes) into a block-4-2 "
+            f"group in {load_s:.2f} s ({rows / load_s:.0f} rows/s); live "
+            f"bytes per disk {live}; live / raw "
+            f"{out['load']['live_over_raw']:.3f}, PDisk chunk bytes written "
+            f"/ raw {out['load']['written_over_raw']:.3f}; encode "
+            f"{out['load']['encode_mb_per_s']:.1f} MB/s; largest part "
+            f"{out['load']['largest_part']} bytes of a {ERASURE_CHUNK}-byte "
+            f"chunk")
+        step("load", t_phase)
+
+        # ---- step 2: healthy ----
+        t0 = time.perf_counter()
+        assert cluster.health() == {"status": "GOOD", "issues": []}
+        if cuda:
+            ck.reset_launches()
+        healthy = erasure_statements(cluster)
+        want = healthy["results"]
+        if cuda:
+            out["launches"] = dict(ck.LAUNCHES)
+            log(f"erasure launches (Q1, Q6, q3, then q33 and q36 on both "
+                f"lowerings): {out['launches']}")
+            assert all(v > 0 for v in out["launches"].values()), \
+                out["launches"]
+        check_erasure_answers(want, tp, cb)
+        if cuda:
+            out["kernel_check"] = serving_kernels(cluster, ck)
+        out["healthy_ms"] = healthy["ms"]
+        step("healthy", t0)
+
+        # ---- step 3: degraded ----
+        t0 = time.perf_counter()
+        for i in ERASURE_DOWN:
+            group.disks[i].down = True
+        h = cluster.health()
+        assert h == {"status": "DEGRADED", "issues": [{
+            "severity": "yellow",
+            "message": f"group {ERASURE_GROUP}: {len(ERASURE_DOWN)} "
+                       f"disk(s) down"}]}, h
+        stop(cluster)
+        out["reopen_s"] = reopen_hulls(group, root, written, made)
+        codec.reset()
+        store.reset()
+        cluster, out["degraded_boot_s"] = boot()
+        degraded = erasure_statements(cluster)
+        same_answers(degraded["results"], want, "degraded")
+        out["degraded_read"] = read_meter(codec, store)
+        out["degraded_ms"] = degraded["ms"]
+        s = cluster.session()
+        s.execute("CREATE TABLE degraded_writes (id int64, v int64, "
+                  "PRIMARY KEY (id))")
+        s.execute("INSERT INTO degraded_writes VALUES (1, 10), (2, 20), "
+                  "(3, 30)")
+        assert degraded_writes(cluster) == (3, 60)
+        m = out["degraded_read"]
+        log(f"erasure degraded (disks {ERASURE_DOWN} down): boot "
+            f"{out['degraded_boot_s']:.2f} s, answers equal step 2's; "
+            f"restore {m['restore_mb_per_s']} MB/s over {m['restores']} "
+            f"restores; {m['decode_bytes']} bytes decoded for "
+            f"{m['returned_bytes']} returned (x{m['read_amplification']}), "
+            f"{m['decodes_per_blob_read']} decodes per blob read")
+        step("degraded", t0)
+
+        # ---- step 4: the controller heals; two other disks go ----
+        t0 = time.perf_counter()
+        healed = ctl.check_and_heal()
+        out["heal"] = [{"slot": r.slot, "old": r.old_disk, "new": r.new_disk,
+                        "parts_rebuilt": r.parts_rebuilt} for r in healed]
+        assert sorted(r.slot for r in healed) == sorted(ERASURE_DOWN), \
+            out["heal"]
+        assert ctl.degraded_groups() == [] and warden.spare_count == 0
+        assert cluster.health() == {"status": "GOOD", "issues": []}
+        out["heal_s"] = time.perf_counter() - t0
+        for i in ERASURE_DOWN_HEALED:
+            group.disks[i].down = True
+        stop(cluster)
+        cluster, out["healed_boot_s"] = boot()
+        same_answers(erasure_statements(cluster)["results"], want, "healed")
+        # a write while disks 1 and 4 are down, for step 5's resync
+        cluster.session().execute(
+            "INSERT INTO degraded_writes VALUES (4, 40)")
+        assert degraded_writes(cluster) == (4, 100)
+        step("heal", t0)
+
+        # ---- step 5: beyond the quorum, then back and resync ----
+        t0 = time.perf_counter()
+        group.disks[ERASURE_THIRD].down = True
+        h = cluster.health()
+        assert h["status"] == "EMERGENCY", h
+        assert {"severity": "red",
+                "message": f"group {ERASURE_GROUP}: 3 disk(s) down"} \
+            in h["issues"], h
+        drop_device_tiers(cluster)
+        try:
+            erasure_statements(cluster, only=(ERASURE_BEYOND_SQL,))
+            raise AssertionError(f"{ERASURE_BEYOND_SQL} answered with three "
+                                 f"disks of a block-4-2 group down")
+        except (ValueError, KeyError) as e:
+            out["beyond_quorum_error"] = f"{type(e).__name__}: {e}"
+        log(f"erasure beyond the quorum: health {h}; "
+            f"{ERASURE_BEYOND_SQL} raised {out['beyond_quorum_error']}")
+        for i in (*ERASURE_DOWN_HEALED, ERASURE_THIRD):
+            group.disks[i].down = False
+        out["resync_parts"] = proxy.resync()
+        assert out["resync_parts"] > 0, out["resync_parts"]
+        drop_device_tiers(cluster)
+        res = erasure_statements(cluster, only=(ERASURE_BEYOND_SQL,))
+        same_answers(res["results"], want, "resynced")
+        assert degraded_writes(cluster) == (4, 100)
+        assert cluster.health() == {"status": "GOOD", "issues": []}
+        stop(cluster)
+        step("beyond_quorum", t0)
+
+        # ---- step 6: failpoints ----
+        t0 = time.perf_counter()
+        fp = Failpoints()
+        faulty = FailpointBlobStore(store, fp)
+        fp.arm("blob.get", "times", ERASURE_FAULTS)
+        faults = []
+        for _ in range(ERASURE_FAULTS + 1):
+            try:
+                c, _ = erasure_boot(faulty, dev)
+                break
+            except InjectedFault as e:
+                faults.append(str(e))
+        else:
+            raise AssertionError(f"every boot failed: {faults}")
+        clusters.append(c)
+        res = erasure_statements(c, only=("q33_fused",))
+        same_answers(res["results"], want, "failpoints")
+        stop(c)
+        out["failpoints"] = {"faults": faults, "stats": fp.stats("blob.get")}
+        assert len(faults) == ERASURE_FAULTS, faults
+        assert out["failpoints"]["stats"]["fired"] == ERASURE_FAULTS
+        log(f"erasure failpoints: blob.get {fp.stats('blob.get')}; "
+            f"{len(faults)} boots failed soft, then q33 equal step 2's")
+        step("failpoints", t0)
+    finally:
+        for c in clusters:
+            c.stop()
+        for pd in made:
+            pd.close()
+        shutil.rmtree(root, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["steps_s"] = steps
+    emit({"erasure": out})
+    log(f"erasure phase: {out['seconds']:.1f} s")
+    assert out["seconds"] < ERASURE_BUDGET_S, out["seconds"]
+    return out
+
+
 def tpch_days(s: str) -> int:
     return int(np.datetime64(s, "D").astype(np.int32))
 
@@ -6486,6 +7057,7 @@ def main(argv=None) -> int:
     from ydb_tpu_torch.workload import clickbench, tpch
 
     dev = torch.device("cuda", 0)
+    clock = PhaseClock()
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} x{torch.cuda.device_count()}; torch "
@@ -6494,6 +7066,7 @@ def main(argv=None) -> int:
 
     # ---- phase 2 ----
     max_err = kernel_phase(ck, dev)
+    clock.lap("2_kernels")
 
     # ---- phase 3: stage data ----
     t0 = time.perf_counter()
@@ -6576,6 +7149,8 @@ def main(argv=None) -> int:
         assert got == answers[name[:3]], (name, got[:3])
     log("main path results: Q1/Q6 equal numpy (ints exact, averages rtol "
         "1e-12); q33/q36 fused and per-aggregate equal the numpy answers")
+
+    clock.lap("3_main_path")
 
     # ---- phase 4: warm timings ----
     metrics, warm_runs = {}, {}
@@ -6664,18 +7239,22 @@ def main(argv=None) -> int:
     metrics["q33_fused_launches_per_run"] = per_query["q33_fused"]["launches"]
     metrics["q33_peragg_launches_per_run"] = per_query["q33_peragg"]["launches"]
 
+    clock.lap("4_timings")
+
     # ---- phase 5: the SQL path ----
     del li_blocks, cb_blocks, outs, ex1, ex6, ex33, ex36, runs
     torch.cuda.empty_cache()
     exceptions = golden_check(dev)
     sql_tp = (tp if args.sql_sf in (None, args.sf)
               else tpch.TpchData(sf=args.sql_sf, seed=42))
-    sql_rows, db, catalog, checks, walk = sql_phase(sql_tp, dev, ck)
+    sql_rows, db, catalog, checks, walk = sql_phase(
+        sql_tp, dev, ck, (want1, want6) if sql_tp is tp else None)
     sql_launches = {k: sum(r["launches"][k] for r in sql_rows)
                     for k in ck.LAUNCHES}
     log(f"SQL path (walk): 22 queries at sf {sql_tp.sf} on the card; Q1, "
         f"Q3, Q5, Q6, Q13, Q18 equal numpy; CUDA kernel launches over all "
         f"first runs {sql_launches}")
+    clock.lap("5_sql")
 
     # ---- phase 6: the DQ stage graph ----
     dq_golden = dq_golden_check(dev)
@@ -6700,12 +7279,15 @@ def main(argv=None) -> int:
         f"{sum(walk_median[r['query']] for r in timed):.4f} s")
     del db, walk
     torch.cuda.empty_cache()
+    clock.lap("6_dq")
 
     # ---- phase 7: whole-plan fusion ----
     fusion = fusion_phase(dev, ck)
+    clock.lap("7_fusion")
 
     # ---- phase 8: TPC-DS ----
     tpcds_rows = tpcds_phase(dev, ck, args.tpcds_sf)
+    clock.lap("8_tpcds")
 
     # ---- phase 9: the ColumnShard storage path ----
     import shutil
@@ -6716,6 +7298,7 @@ def main(argv=None) -> int:
                      "q33": clickbench.q33_q36_answers(cb)["q33"]}
     del cb
     torch.cuda.empty_cache()
+    clock.lap("9_storage")
     roots = [storage.pop("root")]
     try:
         # ---- phase 10: the session and serving plane ----
@@ -6723,20 +7306,24 @@ def main(argv=None) -> int:
         roots.append(serving.pop("root"))
         serving_root = os.path.join(roots[-1], "main")
         want = serving.pop("sanitize_want")
+        clock.lap("10_serving")
 
         # ---- phase 11: the sanitizers ----
         sanitize = sanitize_phase(dev, ck, serving_root, tp, want,
                                   serving.pop("sanitize_disarmed"))
         del tp
         torch.cuda.empty_cache()
+        clock.lap("11_sanitize")
 
         # ---- phase 12: chaos and the timeline ----
         chaos = chaos_phase(dev, ck, roots[0], serving_root, chaos_answers,
                             want)
+        clock.lap("12_chaos")
 
         # ---- phase 14: monitoring, coordination and load ----
         monitor = monitor_phase(dev, ck, serving_root, want,
                                 serving["tpch_table_rows"])
+        clock.lap("14_monitor")
 
         # ---- phase 15: the gRPC front; phase 16 goes on on its node ----
         node = grpc_boot(serving_root, dev)
@@ -6746,9 +7333,11 @@ def main(argv=None) -> int:
         except BaseException:
             stop_node(node)
             raise
+        clock.lap("15_grpc")
 
         # ---- phase 16: streaming ----
         stream = stream_phase(dev, ck, node, serving_root)
+        clock.lap("16_stream")
     finally:
         for root in roots:
             shutil.rmtree(root, ignore_errors=True)
@@ -6756,6 +7345,11 @@ def main(argv=None) -> int:
 
     # ---- phase 13: the row store ----
     row_store = row_store_phase(dev, ck, args.row_sf)
+    clock.lap("13_row_store")
+
+    # ---- phase 17: SQL on a degraded erasure group ----
+    erasure = erasure_phase(dev, ck)
+    clock.lap("17_erasure")
     for row in kernel_rows:
         row["sql_launches"] = sql_launches[row["name"]]
         row["dq_launches"] = dq_launches[row["name"]]
@@ -6791,6 +7385,10 @@ def main(argv=None) -> int:
         row["stream_checked_calls"] = sum(
             q[row["name"]]["calls"]
             for q in stream["kernel_check"].values())
+        row["erasure_launches"] = erasure["launches"][row["name"]]
+        row["erasure_checked_calls"] = sum(
+            q[row["name"]]["calls"]
+            for q in erasure["kernel_check"].values())
         row["max_abs_err"] = max(row["max_abs_err"], *(
             q[row["name"]]["max_abs_err"]
             for q in (*serving["kernel_check"].values(),
@@ -6799,7 +7397,8 @@ def main(argv=None) -> int:
                       *monitor["kernel_check"].values(),
                       *grpc_out["kernel_check"].values(),
                       *stream["kernel_check"].values(),
-                      *row_store["kernel_check"].values())))
+                      *row_store["kernel_check"].values(),
+                      *erasure["kernel_check"].values())))
 
     report.update(metrics=metrics, warm_runs=warm_runs, per_query=per_query,
                   kernels=kernel_rows, sweep=sweep_rows,
@@ -6810,7 +7409,8 @@ def main(argv=None) -> int:
                   sql_dq=dq_rows, sql_dq_golden=dq_golden, fusion=fusion,
                   tpcds=tpcds_rows, storage=storage, serving=serving,
                   sanitize=sanitize, chaos=chaos, monitor=monitor,
-                  grpc=grpc_out, stream=stream, row_store=row_store)
+                  grpc=grpc_out, stream=stream, row_store=row_store,
+                  erasure=erasure, phase_seconds=clock.seconds)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)
@@ -6820,6 +7420,7 @@ def main(argv=None) -> int:
         f"{metrics['q1_warm_s']:.4f} s; whole script "
         f"{time.perf_counter() - STARTED:.1f} s")
     log("chip_smoke: all phases passed")
+    print(json.dumps({"phase_seconds": clock.seconds}))
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": kernel_rows}))
     print(smi)

@@ -374,3 +374,50 @@ def test_eager_lock_registration():
         assert ds.lock_broken(lock)   # broke despite unconsumed iterator
         return [ds.lock_broken(lock), list(it)]
     both(case)
+
+
+def test_writes_break_locks_while_other_threads_take_them():
+    """Phase 13 of chip_smoke.py runs interactive transfers from four
+    session threads: a commit breaks the locks its keys cover while other
+    sessions acquire and release theirs. Here six threads churn locks
+    (200 held each) while one commits 60 writes, under a 1 us switch
+    interval; every write must commit, and a lock over a written key
+    must read broken."""
+    import sys
+    import threading
+
+    ds = _shard(PORT)
+    errors, stop = [], threading.Event()
+
+    def churn():
+        try:
+            held = [ds.acquire_lock() for _ in range(200)]
+            while not stop.is_set():
+                ds.release_lock(held.pop(0))
+                held.append(ds.acquire_lock())
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=churn) for _ in range(6)]
+        for th in threads:
+            th.start()
+        try:
+            watch = ds.acquire_lock()
+            _rows_at(ds, 0, keys=[(7,)], lock_id=watch)
+            for step in range(1, 61):
+                w = ds.propose([PORT.RowOp((step,), {"id": step, "v": 1})])
+                ds.prepare([w])
+                ds.commit_at([w], step=step)
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=30)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:3]
+    assert ds.lock_broken(watch)
+    assert len(_rows_at(ds, 60)) == 60

@@ -297,6 +297,15 @@ STREAMING_MODULES = (
     "ydb_tpu_torch.api.kafka", "ydb_tpu_torch.api.sqs", "ydb_tpu_torch.cli",
 )
 
+#: blob storage and the failpoint registry (ROADMAP.md queue A item 12a)
+BLOBSTORAGE_MODULES = (
+    "ydb_tpu_torch.blobstorage", "ydb_tpu_torch.blobstorage.erasure",
+    "ydb_tpu_torch.blobstorage.group", "ydb_tpu_torch.blobstorage.proxy_store",
+    "ydb_tpu_torch.blobstorage.pdisk", "ydb_tpu_torch.blobstorage.vdisk_lsm",
+    "ydb_tpu_torch.blobstorage.controller",
+    "ydb_tpu_torch.blobstorage.blob_depot", "ydb_tpu_torch.runtime.failpoints",
+)
+
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
     """Every module of ydb_tpu_torch, and chip_smoke.py, imports with jax
@@ -320,7 +329,7 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
            + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
            + ANALYSIS_MODULES + ROW_STORE_MODULES + MONITORING_MODULES
-           + GRPC_MODULES + STREAMING_MODULES,))
+           + GRPC_MODULES + STREAMING_MODULES + BLOBSTORAGE_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -22,10 +22,10 @@ Mirrors the sys-view cases that the port's earlier mirrors left out:
 ``tests/test_obs_config.py`` (3), ``test_acl.py``, ``test_batching.py``,
 ``test_query_profile.py``, ``test_resident.py``, ``test_serving.py``,
 ``test_stats.py``, ``test_timeline.py`` (2), ``test_memsan.py`` and
-``test_stats_quoter.py::test_table_stats_and_sys_views``. The health
-case over a ``GroupBlobStore`` waits for the cluster plane (ROADMAP.md
-queue A item 12); here health is GOOD over a working store and
-EMERGENCY over one whose ``put`` raises, in both packages."""
+``test_stats_quoter.py::test_table_stats_and_sys_views``. Health is
+GOOD over a working store and EMERGENCY over one whose ``put`` raises,
+and over a block-4-2 ``GroupBlobStore`` GOOD, then DEGRADED with one disk
+down, then EMERGENCY with three, in both packages."""
 
 import contextlib
 import json
@@ -240,6 +240,31 @@ def test_health_check_good_and_degraded():
     assert h["status"] == "EMERGENCY"
     assert h["issues"] == [{"severity": "red",
                             "message": "storage unavailable: disk gone"}]
+    # tests/test_obs_config.py::test_health_check_good_and_degraded
+    from ydb_tpu.blobstorage import DSProxy as RDSProxy
+    from ydb_tpu.blobstorage import GroupBlobStore as RGroupBlobStore
+    from ydb_tpu.blobstorage import GroupInfo as RGroupInfo
+    from ydb_tpu_torch.blobstorage import DSProxy, GroupBlobStore, GroupInfo
+
+    rgroup, group = RGroupInfo(1, "block42"), GroupInfo(1, "block42")
+    ref = RCluster(store=RGroupBlobStore(RDSProxy(rgroup)))
+    port = Cluster(store=GroupBlobStore(DSProxy(group)), device="cpu")
+    seen = []
+    for down in ((), (0,), (1, 2)):
+        for g in (rgroup, group):
+            for i in down:
+                g.disks[i].down = True
+        h = port.health()
+        assert h == ref.health()
+        seen.append(h)
+    assert [h["status"] for h in seen] == ["GOOD", "DEGRADED", "EMERGENCY"]
+    assert seen[1]["issues"] == [{"severity": "yellow",
+                                  "message": "group 1: 1 disk(s) down"}]
+    assert seen[2]["issues"] == [
+        {"severity": "red",
+         "message": "storage unavailable: write quorum failed: 6/6 parts "
+                    "on 3 disks (need all parts on >= 4 disks)"},
+        {"severity": "red", "message": "group 1: 3 disk(s) down"}]
 
 
 # ---------------- tests/test_acl.py ----------------

@@ -230,7 +230,7 @@ class DataShard:
             # against a key a decided-later volatile insert owns
             for key_list, _row in pend["ops"]:
                 key = tuple(key_list)
-                for vt in self._volatile.values():
+                for vt in list(self._volatile.values()):
                     if key in vt.keys:
                         raise TxRejected(
                             f"key {key} has an undecided volatile "
@@ -310,7 +310,7 @@ class DataShard:
     def _volatile_fence(self, snapshot: int, lo, hi, keys) -> None:
         """Raise VolatileUndecided when the request intersects an
         undecided volatile tx ordered at or before the snapshot."""
-        for vt in self._volatile.values():
+        for vt in list(self._volatile.values()):
             if vt.step > snapshot:
                 continue
             if keys is not None:
@@ -390,7 +390,9 @@ class DataShard:
         self._locks.pop(lock_id, None)
 
     def _break_locks(self, key: tuple) -> None:
-        for lock in self._locks.values():
+        # a snapshot: sessions on other threads acquire and release locks
+        # while a write breaks them
+        for lock in list(self._locks.values()):
             if not lock.broken and lock.covers(key):
                 lock.broken = True
 

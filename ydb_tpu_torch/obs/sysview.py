@@ -15,9 +15,9 @@ String cells intern into ``cluster.dicts`` in the reference's order, so
 after the same statements the dictionary ids are the reference's.
 ``table_stats`` (cheap: portion metadata only) also feeds the planner's
 row counts and load-driven resharding. ``health_check`` reads a
-``GroupBlobStore``'s disks when the store has a ``proxy``; the port has
-no such store until the cluster plane comes (ROADMAP.md queue A item
-12).
+``GroupBlobStore``'s disks when the store has a ``proxy``
+(``ydb_tpu_torch/blobstorage``): a group with disks down is DEGRADED, one
+past its loss tolerance EMERGENCY.
 """
 
 from __future__ import annotations
