@@ -235,8 +235,10 @@ Phases, in order; any failure exits non-zero before the final line:
    groups on both lowerings against the CPU oracle, and the chaos and
    profiling overheads on warm Q1 at SF-1 (one shard for both) within
    the reference's budgets (``KB_CHAOS_BUDGET``, ``KB_PROFILE_BUDGET``):
-   the armed chaos sites and a profiled scan's trace work counted and
-   timed, the ring over ``KB_PROFILE_ITERS`` interleaved rounds. Each
+   the armed chaos sites, a profiled scan's trace work, and the
+   timeline ring's records, byte counters and end-of-scan sync counted
+   and timed (the wall A/Bs of ``KB_PROFILE_ITERS`` interleaved rounds
+   printed beside them, ``timeline_wall_ab_pct`` for the ring). Each
    step's seconds are printed before the phase's time is asserted.
    Under ``CHAOS_BUDGET_S`` (120 s).
 13. The row store (``ydb_tpu_torch/datashard``, ``tx/mediator.py``, the
@@ -329,11 +331,25 @@ Phases, in order; any failure exits non-zero before the final line:
    ``GRPC_RL_CALLS`` RateLimiter acquisitions grant at most burst + rate x
    elapsed + 1; a Cms config reads back with its version, a stale one is
    refused; health GOOD; a second server with ``auth_tokens`` refuses a
-   bad ticket (``UNAUTHENTICATED``); a KeyValue RPC answers
-   ``UNIMPLEMENTED`` naming ROADMAP.md queue A item 12. (6)
-   ``GRPC_CLIENTS`` client threads send q6 and q33 for ``GRPC_LOAD_S``,
-   every answer equal to (2): statements/s and p50/p99 on the client's
-   clock. (7) The node's first maintenance pass (``run_background`` under
+   bad ticket (``UNAUTHENTICATED``). (6) KeyValue (``tablet/keyvalue.py``
+   behind the service): CreateVolume, a refused duplicate and a refused
+   name with '/'; ``GRPC_KV_INLINE`` inline values and ``GRPC_KV_BIG`` of
+   1 MiB, which spill, written and read back; ListRange with a limit,
+   Rename (a no-op one included), DeleteRange, copy_range through the
+   tablet; a second server over the same Cluster reads the volume it
+   never created; DropVolume; every answer equal to a dict model;
+   operations/s and spilled MB/s. (7) The cluster plane
+   (``runtime/interconnect.py``, ``runtime/nodebroker.py``,
+   ``tablet/hive.py``, ``pipe.py``, ``statestorage.py``): two actor
+   systems on loopback interconnects find each other through a
+   ``NodeBroker``; a ``Hive`` places a ``KeyValueActor`` on one node, a
+   ``PipeClient`` on the other writes through it; the hosting node is
+   killed (``KillNode``), the hive reboots the tablet on the survivor
+   from the same ``DirBlobStore`` and the pipe reads back every
+   acknowledged write; each part's seconds, both systems pumped until a
+   deadline. (8) ``GRPC_CLIENTS`` client threads send q6 and q33 for
+   ``GRPC_LOAD_S``, every answer equal to (2): statements/s and p50/p99
+   on the client's clock. (9) The node's first maintenance pass (``run_background`` under
    the server's lock, as ``cli.py serve``'s loop runs it; on a store just
    booted it sketches every column table for statistics); phase 16 goes
    on on this node. One ``{"grpc": ...}`` line with each step's seconds, printed
@@ -3796,12 +3812,13 @@ KB_GROUPS = 1745
 KB_AGGS = 4
 KB_SF = 1.0
 KB_ITERS = 9
-#: rounds of the profiling A/B, whose ring side holds the timeline's
-#: verdict: a warm SF-1 Q1's host time moves 10% between rounds on the
-#: H100 machine (scripts/overhead_noise.py), so the median same-round
-#: difference needs tens of rounds to resolve its 3% + 2 ms band (the
-#: profiling verdict counts and times the trace work instead)
-KB_PROFILE_ITERS = 45
+#: rounds of the profiling A/B: both of its verdicts count and time the
+#: work they add (profiling's trace work; the timeline ring's records,
+#: byte counters and end-of-scan sync, the sync timed in these rounds),
+#: so the rounds feed only the wall A/Bs printed beside the verdicts and
+#: the medians they divide by (a warm SF-1 Q1's host time moves 10%
+#: between rounds on the H100 machine, scripts/overhead_noise.py)
+KB_PROFILE_ITERS = 15
 KB_BLOCK_ROWS = 1 << 18
 #: the reference's budgets (ydb_tpu/obs/kernelbench.py): chaos armed
 #: within 1% of disarmed (its real-size call), profiling on within the
@@ -4328,7 +4345,12 @@ def chaos_phase(dev, ck, storage_root, serving_root, answers, want) -> dict:
         f"chaos overhead "
         f"{out['kernelbench']['chaos_overhead']['overhead_pct']}%, "
         f"profiling "
-        f"{out['kernelbench']['profile_overhead']['overhead_pct']}%")
+        f"{out['kernelbench']['profile_overhead']['overhead_pct']}%, "
+        f"timeline ring "
+        f"{out['kernelbench']['profile_overhead']['timeline_overhead_pct']}%"
+        f" (wall A/B "
+        f"{out['kernelbench']['profile_overhead']['timeline_wall_ab_pct']}"
+        f"%)")
     assert out["seconds"] < CHAOS_BUDGET_S, out["seconds"]
     return out
 
@@ -4795,6 +4817,22 @@ GRPC_CLIENTS = 8
 GRPC_RL_RATE = 20.0
 GRPC_RL_BURST = 5.0
 GRPC_RL_CALLS = 100
+#: KeyValue step: inline values written (1 to 4,096 bytes), values of
+#: ``GRPC_KV_BIG_BYTES`` that spill into their own blobs, and the limit of
+#: a ListRange over the spilled keys (gRPC's 4 MiB message limit)
+GRPC_KV_INLINE = 256
+GRPC_KV_BIG = 16
+GRPC_KV_BIG_BYTES = 1 << 20
+GRPC_KV_RANGE_LIMIT = 3
+#: cluster-plane step: writes through the pipe (every ``PLANE_BIG_EVERY``-th
+#: of ``PLANE_BIG_BYTES``, spilled), the hive's ping and the pipe's retry
+#: periods on this clock, and the deadline of each wait
+PLANE_WRITES = 64
+PLANE_BIG_EVERY = 8
+PLANE_BIG_BYTES = 64 << 10
+PLANE_PING_S = 0.2
+PLANE_RETRY_S = 0.2
+PLANE_DEADLINE_S = 20.0
 
 
 def arrow_wire(table) -> tuple:
@@ -5057,11 +5095,8 @@ def grpc_services(drv) -> dict:
     second until released), RateLimiter (``GRPC_RL_CALLS`` acquisitions:
     at most burst + rate x elapsed + 1 granted), Cms (a config set reads
     back with its version; a stale one refused), Monitoring (GOOD), Auth
-    (a second server with ``auth_tokens`` refuses a bad ticket), and a
-    KeyValue RPC answering UNIMPLEMENTED (phase 16 drives the Topic
-    service)."""
-    import grpc
-
+    (a second server with ``auth_tokens`` refuses a bad ticket; phase
+    16 drives the Topic service, step 6 the KeyValue service)."""
     from ydb_tpu_torch.api.server import pb
 
     out: dict = {}
@@ -5118,15 +5153,260 @@ def grpc_services(drv) -> dict:
     h = drv._call("/ydb_tpu.Monitoring/HealthCheck", pb.HealthCheckRequest(),
                   pb.HealthCheckResponse)
     assert h.status == "GOOD", h
-    # KeyValue: registered, not ported
+    return out
+
+
+def grpc_keyvalue(cluster, srv, drv) -> dict:
+    """Step 6: the KeyValue service against a Python dict model of the
+    same operations. CreateVolume, a refused duplicate and a refused
+    name with '/'; ``GRPC_KV_INLINE`` inline values and ``GRPC_KV_BIG``
+    values of ``GRPC_KV_BIG_BYTES`` (spilled) written with
+    ExecuteTransaction and read back one by one; ListRange with a limit;
+    Rename (a no-op one included); DeleteRange; copy_range through the
+    tablet under the server's lock; a second server over the same
+    Cluster reading the volume it never created (boot on access);
+    DropVolume. Every answer equals the model's. Seconds, KeyValue
+    operations/s and spilled MB/s written and read."""
+    from ydb_tpu_torch.api.client import ApiError, Driver
+    from ydb_tpu_torch.api.server import make_server
+    from ydb_tpu_torch.tablet.keyvalue import INLINE_LIMIT
+
+    rng = np.random.default_rng(GRPC_SEED)
+    kv = drv.keyvalue_client()
+    vol = "smoke_kv"
+    model: dict = {}
+    ops = [0]
+    t_step = time.perf_counter()
+
+    def refused(fn, *args):
+        ops[0] += 1
+        try:
+            fn(*args)
+        except ApiError as e:
+            return str(e)
+        raise AssertionError(f"{fn.__name__}{args} answered")
+
+    def check_range(lo, hi, limit, client=kv):
+        ops[0] += 1
+        got = client.list_range(vol, lo, hi, limit)
+        keys = sorted(k for k in model
+                      if (not lo or k >= lo) and (not hi or k < hi))
+        assert got == [(k, model[k]) for k in keys[:limit]], (lo, hi)
+        return len(got)
+
+    kv.create_volume(vol)
+    ops[0] += 1
+    out: dict = {"refused_names": [refused(kv.create_volume, vol),
+                                   refused(kv.create_volume, "smoke/kv")]}
+    inline = {f"i/{i:03d}": rng.integers(
+        0, 256, int(rng.integers(1, INLINE_LIMIT + 1)),
+        dtype=np.uint8).tobytes() for i in range(GRPC_KV_INLINE)}
+    big = {f"s/{i:02d}": rng.integers(0, 256, GRPC_KV_BIG_BYTES,
+                                      dtype=np.uint8).tobytes()
+           for i in range(GRPC_KV_BIG)}
+    spilled_mb = GRPC_KV_BIG * GRPC_KV_BIG_BYTES / 1e6
+    for k, v in inline.items():
+        kv.write(vol, k, v)
+    t0 = time.perf_counter()
+    for k, v in big.items():
+        kv.write(vol, k, v)
+    out["spill_write_mb_s"] = spilled_mb / (time.perf_counter() - t0)
+    ops[0] += len(inline) + len(big)
+    model.update(inline)
+    model.update(big)
+    prefix = f"kvvol/{vol}/kvblob/"
+    assert len(cluster.store.list(prefix)) == GRPC_KV_BIG
+    for k in inline:
+        assert kv.read(vol, k) == model[k], k
+    t0 = time.perf_counter()
+    for k in big:
+        assert kv.read(vol, k) == model[k], k
+    out["spill_read_mb_s"] = spilled_mb / (time.perf_counter() - t0)
+    ops[0] += len(model)
+    assert kv.read(vol, "nope") is None
+    ops[0] += 1
+    check_range("i/", "j", 100)
+    check_range("i/250", "j", 100)
+    check_range("s/", "t", GRPC_KV_RANGE_LIMIT)
+    # renames: a no-op one keeps the spilled blob, then inline and spilled
+    assert kv.rename(vol, "s/00", "s/00")
+    assert kv.read(vol, "s/00") == model["s/00"]
+    for old, new in (("i/000", "r/000"), ("s/01", "r/s01")):
+        assert kv.rename(vol, old, new)
+        model[new] = model.pop(old)
+    assert not kv.rename(vol, "ghost", "g2")
+    ops[0] += 5
+    assert len(cluster.store.list(prefix)) == GRPC_KV_BIG
+    # delete a range of inline keys and one spilled key
+    assert kv.delete_range(vol, "i/100", "i/150") == 50
+    assert kv.delete_range(vol, "s/15", "s/16") == 1
+    ops[0] += 2
+    for k in [k for k in model if "i/100" <= k < "i/150" or k == "s/15"]:
+        del model[k]
+    assert len(cluster.store.list(prefix)) == GRPC_KV_BIG - 1
+    # copy_range through the tablet (the service has no RPC for it)
+    proxy = srv.request_proxy
+    with proxy.lock:
+        n = proxy._kv_volume(vol).copy_range("s/02", "s/05", prefix_to="c/")
+    assert n == 3
+    for k in ("s/02", "s/03", "s/04"):
+        model["c/" + k] = model[k]
+        assert kv.read(vol, "c/" + k) == model[k]
+    ops[0] += 4
+    assert len(cluster.store.list(prefix)) == GRPC_KV_BIG + 2
+    check_range("c/", "d", GRPC_KV_RANGE_LIMIT)
+    # a second server over the same Cluster boots the volume on access
+    srv2, port2 = make_server(cluster, port=0)
+    srv2.start()
+    d2 = Driver(f"127.0.0.1:{port2}")
     try:
-        drv._call("/ydb_tpu.KeyValue/Read", pb.KvReadRequest(volume="v"),
-                  pb.KvReadResponse)
-        raise AssertionError("/ydb_tpu.KeyValue/Read answered")
-    except grpc.RpcError as e:
-        assert e.code() == grpc.StatusCode.UNIMPLEMENTED, e
-        assert "item 12" in e.details(), e.details()
-        out["unimplemented"] = [e.details()]
+        kv2 = d2.keyvalue_client()
+        for k, v in model.items():
+            assert kv2.read(vol, k) == v, k
+        ops[0] += len(model)
+        check_range("i/", "j", 100, kv2)
+        kv2.drop_volume(vol)
+        ops[0] += 1
+        out["after_drop"] = refused(kv2.read, vol, "s/00")
+    finally:
+        d2.close()
+        srv2.stop(0)
+        srv2.request_proxy.close()
+    assert cluster.store.list(prefix) == []
+    out["keys"] = len(model)
+    out["ops"] = ops[0]
+    out["seconds"] = time.perf_counter() - t_step
+    out["ops_per_s"] = ops[0] / out["seconds"]
+    return out
+
+
+def grpc_cluster_plane(cluster) -> dict:
+    """Step 7 in a directory beside the node's store, removed after."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="cluster_plane_", dir=os.path.dirname(
+        os.path.abspath(cluster.store.root)))
+    try:
+        return cluster_plane(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cluster_plane(root) -> dict:
+    """Step 7: two of the port's ``ActorSystem``s, each with its own
+    ``Interconnect`` on loopback, find each other through a
+    ``NodeBroker``; a ``Hive`` (with state storage) on the first node
+    places a ``KeyValueActor`` on the least-loaded node, the first; a
+    ``PipeClient`` on the second writes ``PLANE_WRITES`` values through
+    it (every ``PLANE_BIG_EVERY``-th spilled) and waits for each
+    acknowledgement. The hosting node's agent is killed (``KillNode``);
+    the hive misses its pongs, reboots the tablet on the survivor from
+    the same ``DirBlobStore``, and the pipe re-resolves and reads every
+    acknowledged write back. Both systems are pumped in turn until each
+    wait's condition holds or its deadline passes; nothing sleeps on a
+    fixed clock. The seconds of each part."""
+    from ydb_tpu_torch.engine.blobs import DirBlobStore, MemBlobStore
+    from ydb_tpu_torch.runtime.actors import Actor, ActorSystem
+    from ydb_tpu_torch.runtime.interconnect import Interconnect
+    from ydb_tpu_torch.runtime.nodebroker import NodeBroker
+    from ydb_tpu_torch.tablet import hive as hive_mod
+    from ydb_tpu_torch.tablet import keyvalue, pipe, statestorage
+
+    class Probe(Actor):
+        def __init__(self):
+            super().__init__()
+            self.got = []
+
+        def receive(self, message, sender):
+            self.got.append(message)
+
+    rng = np.random.default_rng(GRPC_SEED + 1)
+    out: dict = {}
+    t_step = t0 = time.perf_counter()
+    sys_a, sys_b = ActorSystem(node=0), ActorSystem(node=0)
+    ic_a = Interconnect(sys_a, listen_port=0)
+    ic_b = Interconnect(sys_b, listen_port=0)
+
+    def pump_until(cond, what):
+        deadline = time.monotonic() + PLANE_DEADLINE_S
+        while not cond():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"cluster plane: {what}")
+            ic_a.pump(0.002, idle_sleep=0.0005)
+            ic_b.pump(0.002, idle_sleep=0.0005)
+
+    try:
+        broker = NodeBroker(MemBlobStore(), lease_s=300)
+        a = broker.register("127.0.0.1", ic_a.port)
+        b = broker.register("127.0.0.1", ic_b.port)
+        sys_a.node, sys_b.node = a.node_id, b.node_id
+        broker.connect_peers(ic_a)
+        broker.connect_peers(ic_b)
+        assert set(ic_a.peers) == {b.node_id} and \
+            set(ic_b.peers) == {a.node_id}
+        out["discovery_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        store = DirBlobStore(root)
+        replica = sys_a.register(statestorage.StateStorageReplica())
+        proxy_a = sys_a.register(statestorage.StateStorageProxy([replica]))
+        proxy_b = sys_b.register(statestorage.StateStorageProxy([replica]))
+        hive = hive_mod.Hive()
+        hive.PING_PERIOD = PLANE_PING_S
+        hive_id = sys_a.register(hive)
+        factories = {"kv": keyvalue.KeyValueActor}
+        agent_a = sys_a.register(hive_mod.LocalAgent(
+            store, proxy_a, factories, hive=hive_id))
+        sys_b.register(hive_mod.LocalAgent(store, proxy_b, factories,
+                                           hive=hive_id))
+        pump_until(lambda: len(hive.agents) == 2, "agents registered")
+        probe = Probe()
+        probe_id = sys_b.register(probe)
+        sys_b.send(hive_id, hive_mod.CreateTablet("plane-kv", "kv"),
+                   sender=probe_id)
+        pump_until(lambda: probe.got, "tablet created")
+        created = probe.got.pop()
+        assert isinstance(created, hive_mod.TabletCreated), created
+        assert created.node == a.node_id, created
+        out["place_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        client = pipe.PipeClient("plane-kv", proxy_b, probe_id)
+        client.RETRY_PERIOD = PLANE_RETRY_S
+        pipe_id = sys_b.register(client)
+        model = {}
+        for i in range(PLANE_WRITES):
+            n = (PLANE_BIG_BYTES if i % PLANE_BIG_EVERY == 0
+                 else int(rng.integers(1, 512)))
+            model[f"k{i:03d}"] = rng.integers(0, 256, n,
+                                              dtype=np.uint8).tobytes()
+        for k, v in model.items():
+            sys_b.send(pipe_id, pipe.PipeSend(keyvalue.KvWrite(k, v)))
+        pump_until(lambda: len(probe.got) >= PLANE_WRITES, "writes acked")
+        assert probe.got == [("ok", k) for k in model], probe.got[:4]
+        assert len(store.list("plane-kv/kvblob/")) == \
+            -(-PLANE_WRITES // PLANE_BIG_EVERY)
+        out["writes_s"] = time.perf_counter() - t0
+        probe.got.clear()
+
+        t0 = time.perf_counter()
+        sys_a.send(agent_a, hive_mod.KillNode())
+        sys_b.send(pipe_id, pipe.PipeSend(keyvalue.KvRange(None, None,
+                                                           10 ** 6)))
+        pump_until(lambda: probe.got, "read after failover")
+        assert a.node_id not in hive.agents
+        assert hive.tablets["plane-kv"]["node"] == b.node_id
+        assert probe.got == [("range", sorted(model.items()))], \
+            [m[0] for m in probe.got]
+        out["failover_s"] = time.perf_counter() - t0
+        out["leader_generation"] = client.leader_gen
+        out["writes"] = PLANE_WRITES
+        out["nodes"] = [a.node_id, b.node_id]
+    finally:
+        ic_a.close()
+        ic_b.close()
+    out["seconds"] = time.perf_counter() - t_step
     return out
 
 
@@ -5161,7 +5441,7 @@ def grpc_auth(cluster) -> dict:
 
 
 def grpc_load(port, answers) -> dict:
-    """Step 6: ``GRPC_CLIENTS`` threads, one Driver each, send q6 and q33
+    """Step 8: ``GRPC_CLIENTS`` threads, one Driver each, send q6 and q33
     in turns for ``GRPC_LOAD_S``; every answer equal to step 2's.
     Statements/s and p50/p99 on the client's clock."""
     import threading
@@ -5212,7 +5492,7 @@ def grpc_load(port, answers) -> dict:
 
 
 def grpc_maintenance(cluster, srv) -> dict:
-    """Step 7: the node's first maintenance pass, under the server's lock
+    """Step 9: the node's first maintenance pass, under the server's lock
     as ``cli.py serve``'s loop runs it; on a store just booted,
     ``run_background`` sketches every column table for statistics."""
     with srv.request_proxy.lock:
@@ -5238,11 +5518,18 @@ def grpc_phase(dev, ck, node, want, tpch_rows) -> dict:
             ("scheme", lambda: grpc_scheme(drv, tpch_rows)),
             ("services", lambda: grpc_services(drv)),
             ("auth", lambda: grpc_auth(cluster)),
+            ("keyvalue", lambda: grpc_keyvalue(cluster, srv, drv)),
+            ("cluster_plane", lambda: grpc_cluster_plane(cluster)),
             ("load", lambda: grpc_load(port, want)),
             ("maintenance", lambda: grpc_maintenance(cluster, srv))):
+        before = dict(ck.LAUNCHES) if cuda else {}
         t0 = time.perf_counter()
         out[name] = fn()
         steps[name] = time.perf_counter() - t0
+        if cuda and name in ("keyvalue", "cluster_plane"):
+            # host steps: the kernels' launches there, read (and printed)
+            out[name]["launches"] = {k: ck.LAUNCHES[k] - before[k]
+                                     for k in before}
     out["seconds"] = time.perf_counter() - t_phase + boot_s
     out["steps_s"] = steps
     emit({"grpc": {
@@ -5251,10 +5538,15 @@ def grpc_phase(dev, ck, node, want, tpch_rows) -> dict:
         "statement_s": out["query"]["statement_s"],
         "table": out["table"], "scheme": out["scheme"],
         "services": out["services"], "auth": out["auth"],
+        "keyvalue": out["keyvalue"], "cluster_plane": out["cluster_plane"],
         "load": out["load"], "maintenance": out["maintenance"]}})
     log(f"grpc phase: {out['seconds']:.1f} s; Q1, Q6, q3, q33, q36 over "
         f"gRPC equal to pgwire's, {GRPC_UPSERT_ROWS} rows upserted and read "
-        f"back, customer exported and imported equal, load "
+        f"back, customer exported and imported equal, KeyValue "
+        f"{out['keyvalue']['ops_per_s']:.0f} ops/s (spilled "
+        f"{out['keyvalue']['spill_write_mb_s']:.0f} MB/s written), "
+        f"failover through the hive "
+        f"{out['cluster_plane']['failover_s']:.2f} s, load "
         f"{out['load']['statements_per_s']:.1f} statements/s (p50 "
         f"{out['load']['p50_ms']:.1f} ms, p99 {out['load']['p99_ms']:.1f} "
         f"ms)")

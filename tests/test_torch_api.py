@@ -13,9 +13,10 @@ answers, the same errors, and where a result is exact the same Arrow IPC
 bytes. Wire cases: each package's client against the other's server;
 the ``.proto`` files byte-equal and the tracked ``_pb2.py`` equal to a
 fresh ``protoc`` run; ``ensure_protos()`` with no ``protoc`` anywhere;
-every KeyValue RPC of the port answering ``UNIMPLEMENTED`` with the item
-that brings it, while the port's topic and key-value clients work
-against the reference's server; the ``topic write`` and ``topic read``
+the three KeyValue cases of ``tests/test_api_table.py`` on both servers,
+and each KeyValue RPC's response bytes equal across the two servers for
+one request sequence; the port's topic and key-value clients against
+the reference's server; the ``topic write`` and ``topic read``
 verbs of the port's CLI against both servers. Tolerance: none."""
 
 import decimal
@@ -776,40 +777,132 @@ def test_port_stubs_drive_the_reference_topic_and_keyvalue(served):
     rq.close()
 
 
-_NOT_PORTED_RPCS = [
-    (service, rpc, spec)
-    for service, methods in server._SERVICES.items()
-    if service in server._NOT_PORTED
-    for rpc, spec in methods.items()
-]
+def test_keyvalue_service(served):
+    """``tests/test_api_table.py::test_keyvalue_service`` on both
+    servers: volume lifecycle, the seven RPCs, and a second server over
+    the same cluster that boots the volume on access."""
+    for s in served:
+        kv = s.driver.keyvalue_client()
+        kv.create_volume("kvs_vol1")
+        with pytest.raises(s.ApiError):
+            kv.create_volume("kvs_vol1")  # duplicate
+        kv.write("kvs_vol1", "a", b"1")
+        kv.write("kvs_vol1", "b", b"2")
+        kv.write("kvs_vol1", "c", b"3")
+        assert kv.read("kvs_vol1", "b") == b"2"
+        assert kv.read("kvs_vol1", "nope") is None
+        assert kv.list_range("kvs_vol1", "a", "c") == [("a", b"1"),
+                                                       ("b", b"2")]
+        assert kv.rename("kvs_vol1", "b", "bb")
+        assert kv.read("kvs_vol1", "bb") == b"2"
+        assert kv.delete_range("kvs_vol1", "a", "b") == 1
+        assert kv.read("kvs_vol1", "a") is None
+        with pytest.raises(s.ApiError):
+            kv.write("kvs_ghost", "k", b"v")
+
+        # durability: a NEW proxy over the same store still sees the data
+        server2, port2 = s.srv_mod.make_server(s.cluster, port=0)
+        server2.start()
+        d2 = s.client.Driver(f"127.0.0.1:{port2}")
+        try:
+            kv2 = d2.keyvalue_client()
+            assert kv2.read("kvs_vol1", "bb") == b"2"
+            assert kv2.read("kvs_vol1", "c") == b"3"
+            kv2.drop_volume("kvs_vol1")
+            with pytest.raises(s.ApiError):
+                kv2.read("kvs_vol1", "bb")
+        finally:
+            d2.close()
+            server2.stop(0)
+            server2.request_proxy.close()
 
 
-@pytest.mark.parametrize(
-    "service,rpc,spec", _NOT_PORTED_RPCS,
-    ids=[f"{s.split('.')[1]}.{r}" for s, r, _ in _NOT_PORTED_RPCS])
-def test_topic_and_keyvalue_rpcs_are_unimplemented(served, service, rpc,
-                                                   spec):
-    """Each RPC of the KeyValue service stays registered on the port's
-    server and answers UNIMPLEMENTED naming the ROADMAP.md queue A item
-    that brings it (12); the Topic service is served
-    (``test_topic_service``)."""
-    port = served[1]
-    _attr, req_cls, resp_cls = spec[:3]
-    kind = spec[3] if len(spec) > 3 else "unary_unary"
-    method = f"/{service}/{rpc}"
-    kw = dict(request_serializer=lambda m: m.SerializeToString(),
-              response_deserializer=resp_cls.FromString)
-    ch = port.driver.channel
-    with pytest.raises(grpc.RpcError) as ei:
-        if kind == "unary_unary":
-            ch.unary_unary(method, **kw)(req_cls())
-        elif kind == "unary_stream":
-            list(ch.unary_stream(method, **kw)(req_cls()))
-        else:
-            list(ch.stream_stream(method, **kw)(iter([req_cls()])))
-    assert ei.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert service == "ydb_tpu.KeyValue"
-    assert "item 12" in ei.value.details(), ei.value.details()
+def test_kv_volume_prefix_names_do_not_collide(served):
+    """Registry probes are exact-key: volume 'kvp_a' must not shadow
+    'kvp_ab' (``tests/test_api_table.py``), on both servers."""
+    for s in served:
+        kv = s.driver.keyvalue_client()
+        kv.create_volume("kvp_ab")
+        kv.create_volume("kvp_a")  # exact-key check: no phantom 'exists'
+        kv.write("kvp_ab", "k", b"ab-val")
+        kv.write("kvp_a", "k", b"a-val")
+        assert kv.read("kvp_ab", "k") == b"ab-val"
+        assert kv.read("kvp_a", "k") == b"a-val"
+        with pytest.raises(s.ApiError):
+            kv.read("kvp_abc", "k")  # never created
+
+
+def test_kv_volume_name_validation(served):
+    for s in served:
+        kv = s.driver.keyvalue_client()
+        with pytest.raises(s.ApiError, match="'/'-free"):
+            kv.create_volume("a/log")
+        with pytest.raises(s.ApiError, match="'/'-free"):
+            kv.create_volume("")
+
+
+def _kv_requests(rpc: str, vol: str) -> list:
+    """A request sequence that ends on ``rpc``'s own calls (hits,
+    misses, error answers), each a (method, request) pair."""
+    big = bytes(range(256)) * 20  # 5,120 bytes: spills past 4,096
+    setup = [("CreateVolume", pb.KvVolumeRequest(path=vol))] + [
+        ("ExecuteTransaction", pb.KvWriteRequest(
+            volume=vol, key=k, value=v))
+        for k, v in (("a", b"1"), ("b", b""), ("c", big), ("d", b"4"))]
+    calls = {
+        "CreateVolume": [pb.KvVolumeRequest(path=vol),
+                         pb.KvVolumeRequest(path="x/y"),
+                         pb.KvVolumeRequest(path="")],
+        "DropVolume": [pb.KvVolumeRequest(path=vol),
+                       pb.KvVolumeRequest(path=vol)],
+        "ExecuteTransaction": [
+            pb.KvWriteRequest(volume=vol, key="a", value=big),
+            pb.KvWriteRequest(volume=vol, key="a", value=b"small"),
+            pb.KvWriteRequest(volume=vol + "_ghost", key="a", value=b"")],
+        "Read": [pb.KvReadRequest(volume=vol, key=k)
+                 for k in ("a", "b", "c", "nope")]
+                + [pb.KvReadRequest(volume=vol + "_ghost", key="a")],
+        "ListRange": [pb.KvListRangeRequest(volume=vol, to="c"),
+                      pb.KvListRangeRequest(volume=vol, limit=2),
+                      pb.KvListRangeRequest(**{"volume": vol,
+                                               "from": "b"}),
+                      pb.KvListRangeRequest(volume=vol + "_ghost")],
+        "DeleteRange": [pb.KvDeleteRangeRequest(volume=vol, to="b"),
+                        pb.KvDeleteRangeRequest(**{"volume": vol,
+                                                   "from": "c"}),
+                        pb.KvDeleteRangeRequest(volume=vol + "_ghost")],
+        "Rename": [pb.KvRenameRequest(volume=vol, old_key="c",
+                                      new_key="c"),
+                   pb.KvRenameRequest(volume=vol, old_key="c",
+                                      new_key="a"),
+                   pb.KvRenameRequest(volume=vol, old_key="ghost",
+                                      new_key="z"),
+                   pb.KvRenameRequest(volume=vol + "_ghost",
+                                      old_key="a", new_key="b")],
+    }[rpc]
+    tail = [("ListRange", pb.KvListRangeRequest(volume=vol))]
+    return setup + [(rpc, r) for r in calls] + tail
+
+
+@pytest.mark.parametrize("rpc", list(server._SERVICES["ydb_tpu.KeyValue"]))
+def test_keyvalue_rpc_response_bytes_equal(served, rpc):
+    """The same request sequence against the reference's server and the
+    port's: every response, serialized, byte for byte equal."""
+    methods = server._SERVICES["ydb_tpu.KeyValue"]
+    got = {}
+    for s in served:
+        out = []
+        for name, req in _kv_requests(rpc, f"kvb_{rpc}"):
+            resp_cls = methods[name][2]
+            call = s.driver.channel.unary_unary(
+                f"/ydb_tpu.KeyValue/{name}",
+                request_serializer=lambda m: m.SerializeToString(),
+                response_deserializer=lambda b: b)
+            raw = call(req)
+            resp_cls.FromString(raw)  # a well-formed answer
+            out.append((name, raw))
+        got[s.name] = out
+    assert got["ref"] == got["port"]
 
 
 def test_proto_files_are_the_reference_and_pb2_is_protoc_output(tmp_path):

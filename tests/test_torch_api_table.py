@@ -4,9 +4,7 @@ client transaction control, Arrow BulkUpsert, streaming ReadTable,
 CopyTable, Explain) against the reference's.
 
 Mirrors the cases of ``tests/test_api_table.py`` less its three KeyValue
-cases (the KeyValue tablet waits for ROADMAP.md queue A item 12; the
-port's server answers those RPCs ``UNIMPLEMENTED``,
-``tests/test_torch_api.py``). Each case sends the same calls through a
+cases, which ``tests/test_torch_api.py`` holds. Each case sends the same calls through a
 reference server over a reference ``Cluster`` and a port server over a
 port ``Cluster`` on the CPU (one of each for the module, a table name
 per case): the same answers and errors, and where a result is exact the

@@ -75,3 +75,10 @@ def test_profile_verdict_counts_and_times_the_trace_work():
     assert out["profile_added_ms"] > 0, out
     assert out["rows"] == shard[1] and out["rounds"] == 2
     assert out["timeline_disabled_events"] == 0
+    # the ring's verdict counts and times its own work: the records and
+    # byte counters of one ring-on scan, and its one end-of-scan sync
+    assert out["timeline_ring_events"] >= 2, out
+    assert out["timeline_byte_adds"] >= 1 and out["timeline_syncs"] == 1
+    assert out["timeline_added_ms"] == pytest.approx(
+        out["timeline_ring_ms"] + out["timeline_sync_ms"], abs=2e-4)
+    assert "timeline_wall_ab_pct" in out and out["timeline_within_budget"]

@@ -306,6 +306,14 @@ BLOBSTORAGE_MODULES = (
     "ydb_tpu_torch.blobstorage.blob_depot", "ydb_tpu_torch.runtime.failpoints",
 )
 
+CLUSTER_PLANE_MODULES = (
+    "ydb_tpu_torch.tablet.statestorage", "ydb_tpu_torch.tablet.hive",
+    "ydb_tpu_torch.tablet.pipe", "ydb_tpu_torch.tablet.keyvalue",
+    "ydb_tpu_torch.scheme.board", "ydb_tpu_torch.scheme.shard",
+    "ydb_tpu_torch.runtime.pools", "ydb_tpu_torch.runtime.interconnect",
+    "ydb_tpu_torch.runtime.nodebroker",
+)
+
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
     """Every module of ydb_tpu_torch, and chip_smoke.py, imports with jax
@@ -329,7 +337,8 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
     """ % (SQL_PATH_MODULES + DQ_PATH_MODULES + FUSION_PATH_MODULES
            + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
            + ANALYSIS_MODULES + ROW_STORE_MODULES + MONITORING_MODULES
-           + GRPC_MODULES + STREAMING_MODULES + BLOBSTORAGE_MODULES,))
+           + GRPC_MODULES + STREAMING_MODULES + BLOBSTORAGE_MODULES
+           + CLUSTER_PLANE_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

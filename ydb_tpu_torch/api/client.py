@@ -7,10 +7,8 @@ pyarrow Tables.
 
 The port's own copy of ``ydb_tpu/api/client.py``: the same method paths
 and messages, so it drives the port's server (``server.py``) and the
-reference's alike. ``KeyValueClient`` is a thin stub over the wire: the
-port's server answers its RPCs ``UNIMPLEMENTED`` until ROADMAP.md queue
-A item 12 brings the KeyValue tablet; the reference's server serves
-them.
+reference's alike, the ``KeyValueClient``'s volume RPCs included: both
+servers serve them.
 """
 
 from __future__ import annotations

@@ -15,9 +15,11 @@ cluster's sessions as pgwire's do, so tenant admission, the quoter gate
 and ``device.work_lock`` apply; the server serves whatever device the
 ``Cluster`` is on. The Topic service (``Write``, ``Read``, ``Commit``,
 ``StreamRead``, ``StreamWrite``) serves ``Cluster.topics`` as the
-reference's does. The KeyValue service stays registered and answers
-every RPC ``UNIMPLEMENTED`` with a message naming the ROADMAP.md queue A
-item that brings it (the KeyValue tablet: item 12). Where the reference clears only the plan cache after a bulk
+reference's does, and the KeyValue service serves volumes of the port's
+``KeyValueTablet`` on the cluster's store under the reference's registry
+keys (``kv/volumes/<name>``) and tablet ids (``kvvol/<name>``), so a
+volume written through either package's server boots in the other.
+Where the reference clears only the plan cache after a bulk
 write, the port drops cached plans and compiled programs together
 (``Cluster._invalidate_plans``), as its own INSERT does: both bake
 dictionary contents in.
@@ -25,7 +27,6 @@ dictionary contents in.
 
 from __future__ import annotations
 
-import functools
 import itertools
 import threading
 from collections import OrderedDict
@@ -72,6 +73,8 @@ class RequestProxy:
         self._operations: dict = {}
         self._op_lock = threading.Lock()
         self._op_seq = 0
+        # KeyValue volumes (booted on access from the durable registry)
+        self._kv_volumes: dict = {}
 
     def check_auth(self, context) -> str | None:
         """Validates the ticket; returns it (the ACL principal) when
@@ -356,14 +359,114 @@ class RequestProxy:
                 request.consumer, request.offset + 1)
         return pb.TopicCommitResponse()
 
-    # ---- KeyValue: registered, not ported yet ----
+    # ---- KeyValue service (ydb_keyvalue_v1 analog over the KeyValue
+    # tablet: volumes live in the cluster store, reboot-durable) ----
 
-    def not_ported(self, service: str, request, context):
-        """Every RPC of a service whose module the port does not have
-        yet (``_NOT_PORTED``): authenticated, then ``UNIMPLEMENTED``
-        naming the item that brings it."""
+    def _kv_registered(self, path: str) -> bool:
+        """Exact-key registry probe (a prefix listing would make
+        volume 'a' shadow 'ab'). The reference reads the key and catches
+        ``KeyError``, which a ``DirBlobStore`` never raises (it raises
+        ``FileNotFoundError``), so its service creates no volume on a
+        directory store; the port asks the store (ROADMAP.md queue C)."""
+        return self.cluster.store.exists(f"kv/volumes/{path}")
+
+    def _kv_volume(self, path: str):
+        """Boot-on-access from the durable registry: a proxy restart
+        loses nothing."""
+        from ydb_tpu_torch.tablet.keyvalue import KeyValueTablet
+
+        if path in self._kv_volumes:
+            return self._kv_volumes[path]
+        if not self._kv_registered(path):
+            return None
+        vol = KeyValueTablet.boot(f"kvvol/{path}", self.cluster.store)
+        self._kv_volumes[path] = vol
+        return vol
+
+    def kv_create_volume(self, request, context):
         self.check_auth(context)
-        context.abort(grpc.StatusCode.UNIMPLEMENTED, _NOT_PORTED[service])
+        from ydb_tpu_torch.tablet.keyvalue import KeyValueTablet
+
+        if "/" in request.path or not request.path:
+            return pb.KvVolumeResponse(
+                error="volume names must be non-empty and '/'-free "
+                      "(they key the tablet store)")
+        with self.lock:
+            if self._kv_registered(request.path):
+                return pb.KvVolumeResponse(
+                    error=f"volume {request.path} exists")
+            self.cluster.store.put(f"kv/volumes/{request.path}", b"1")
+            self._kv_volumes[request.path] = KeyValueTablet.boot(
+                f"kvvol/{request.path}", self.cluster.store)
+        return pb.KvVolumeResponse()
+
+    def kv_drop_volume(self, request, context):
+        self.check_auth(context)
+        with self.lock:
+            vol = self._kv_volume(request.path)
+            if vol is None:
+                return pb.KvVolumeResponse(
+                    error=f"no volume {request.path}")
+            vol.delete_range(None, None)
+            self.cluster.store.delete(f"kv/volumes/{request.path}")
+            self._kv_volumes.pop(request.path, None)
+        return pb.KvVolumeResponse()
+
+    def kv_write(self, request, context):
+        self.check_auth(context)
+        with self.lock:
+            vol = self._kv_volume(request.volume)
+            if vol is None:
+                return pb.KvWriteResponse(
+                    error=f"no volume {request.volume}")
+            vol.write(request.key, request.value)
+        return pb.KvWriteResponse()
+
+    def kv_read(self, request, context):
+        self.check_auth(context)
+        with self.lock:
+            vol = self._kv_volume(request.volume)
+            if vol is None:
+                return pb.KvReadResponse(
+                    error=f"no volume {request.volume}")
+            v = vol.read(request.key)
+        if v is None:
+            return pb.KvReadResponse(found=False)
+        return pb.KvReadResponse(found=True, value=v)
+
+    def kv_list_range(self, request, context):
+        self.check_auth(context)
+        with self.lock:
+            vol = self._kv_volume(request.volume)
+            if vol is None:
+                return pb.KvListRangeResponse(
+                    error=f"no volume {request.volume}")
+            pairs = vol.read_range(getattr(request, "from") or None,
+                                   request.to or None,
+                                   limit=request.limit or 1000)
+        return pb.KvListRangeResponse(pairs=[
+            pb.KvPair(key=k, value=v) for k, v in pairs])
+
+    def kv_delete_range(self, request, context):
+        self.check_auth(context)
+        with self.lock:
+            vol = self._kv_volume(request.volume)
+            if vol is None:
+                return pb.KvDeleteRangeResponse(
+                    error=f"no volume {request.volume}")
+            n = vol.delete_range(getattr(request, "from") or None,
+                                 request.to or None)
+        return pb.KvDeleteRangeResponse(deleted=n)
+
+    def kv_rename(self, request, context):
+        self.check_auth(context)
+        with self.lock:
+            vol = self._kv_volume(request.volume)
+            if vol is None:
+                return pb.KvRenameResponse(
+                    error=f"no volume {request.volume}")
+            ok = vol.rename(request.old_key, request.new_key)
+        return pb.KvRenameResponse(renamed=ok)
 
     # ---- Export/Import (ydb_export/ydb_import analog) ----
 
@@ -1224,14 +1327,6 @@ def _ancestors(path: str) -> list[str]:
     return ["/".join(parts[:i]) for i in range(1, len(parts))]
 
 
-#: services of the reference's wire surface whose modules the port does
-#: not have yet: each of their RPCs answers UNIMPLEMENTED with this text
-_NOT_PORTED = {
-    "ydb_tpu.KeyValue": "the KeyValue service waits for the KeyValue "
-                        "tablet in ydb_tpu_torch (ROADMAP.md queue A "
-                        "item 12)",
-}
-
 _SERVICES = {
     "ydb_tpu.Query": {
         "CreateSession": ("create_session", pb.CreateSessionRequest,
@@ -1398,10 +1493,8 @@ def make_server(cluster: Cluster, port: int = 0,
                 "stream_unary": grpc.stream_unary_rpc_method_handler,
                 "stream_stream": grpc.stream_stream_rpc_method_handler,
             }[kind]
-            behavior = (functools.partial(proxy.not_ported, service)
-                        if service in _NOT_PORTED else getattr(proxy, attr))
             handlers[rpc_name] = ctor(
-                behavior,
+                getattr(proxy, attr),
                 request_deserializer=req_cls.FromString,
                 response_serializer=resp_cls.SerializeToString,
             )

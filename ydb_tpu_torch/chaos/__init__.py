@@ -32,9 +32,8 @@ here; chaos is how the tests drive it.
 The port's own copy of ``ydb_tpu/chaos/__init__.py``: the same gates,
 the same per-site seeded streams (a scenario replays exactly the
 reference's fault sequence), the same counters. Its sites are listed in
-``README.md`` beside this file; ``interconnect.send`` and
-``mesh.dispatch`` come with the multi-device port (ROADMAP.md queue A
-item 13).
+``README.md`` beside this file, ``interconnect.send`` among them;
+``mesh.dispatch`` comes with the mesh (ROADMAP.md queue A item 13b).
 """
 
 from __future__ import annotations

@@ -100,7 +100,10 @@ def blob_store_from_reference(store):
     """A port ``MemBlobStore`` holding every blob of a reference blob
     store (anything with ``list(prefix)`` and ``get(blob_id)``), key by
     key, bytes as they are: both packages write the same layout, so a
-    port ``Cluster(store=...)`` boots from it. A ``DirBlobStore``
+    port ``Cluster(store=...)`` boots from it, and so do the tablets on
+    it: KeyValue volumes (``kv/volumes/<name>``, tablets ``kvvol/<name>``
+    with their spilled ``kvblob/`` values), a ``SchemeShardTablet``'s
+    schema and a ``NodeBroker``'s node table. A ``DirBlobStore``
     directory needs no copy: both packages open the same directory."""
     from ydb_tpu_torch.engine.blobs import MemBlobStore
 

@@ -546,6 +546,12 @@ def bench_streaming(rows: int, chunk_rows: int, iters: int,
 #: :func:`bench_profile_overhead`
 TRACE_REPS = 2000
 
+#: ``--smoke`` rounds of the verdicts that are still wall A/Bs (leaksan,
+#: admission, memsan): at the smoke's size a warm scan takes tens of
+#: milliseconds, and the median of 3 same-round ratios moved from -9% to
+#: +64% against the 50% smoke budget on a loaded CPU
+SMOKE_AB_ROUNDS = 9
+
 
 def _trace_work(shard, prog) -> tuple[list, int]:
     """What profiling adds to one warm scan of ``prog``, counted: the
@@ -574,6 +580,70 @@ def _trace_work(shard, prog) -> tuple[list, int]:
              for s in tracer.spans_for(h.profile.trace_id)
              if s.parent_id is not None]
     return spans, wraps[0]
+
+
+def _ring_work(shard, prog) -> tuple[list, list, int]:
+    """What the timeline ring adds to one warm profiled scan of ``prog``,
+    counted with the ring forced on: its records (name, category,
+    seconds, whether it carried a trace id, attributes, in order: stage
+    charges, spans, conveyor waits and runs, blob reads, decodes), the byte
+    counters the scan added (always on, so both sides of the replay pay
+    them), and the end-of-scan syncs (``engine/scan.py:_settle``)."""
+    from ydb_tpu_torch.engine import scan as scan_mod
+    from ydb_tpu_torch.obs import profile as profile_mod
+    from ydb_tpu_torch.obs import timeline
+
+    add_bytes, settle = timeline.add_bytes, scan_mod._settle
+    byte_adds, settles = [], [0]
+
+    def counting_bytes(key, n):
+        byte_adds.append((key, int(n)))
+        return add_bytes(key, n)
+
+    def counting_settle(out):
+        settles[0] += 1
+        return settle(out)
+
+    timeline.RING.clear()
+    timeline.TIMELINE_FORCE = True
+    timeline.add_bytes, scan_mod._settle = counting_bytes, counting_settle
+    try:
+        with profile_mod.profiled("q1"):
+            shard.scan(prog)
+    finally:
+        timeline.add_bytes, scan_mod._settle = add_bytes, settle
+        timeline.TIMELINE_FORCE = False
+    events = [(e.name, e.cat, e.end - e.start, bool(e.trace_id),
+               dict(e.args)) for e in timeline.RING.events()]
+    timeline.RING.clear()
+    return events, byte_adds, settles[0]
+
+
+def _device_syncs(fn, device) -> int:
+    """Host waits on the device (``torch.cuda.synchronize``, a stream's
+    or an event's ``synchronize``) while ``fn`` runs; 0 on the CPU."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return 0
+    n = [0]
+    saved = (torch.cuda.synchronize, torch.cuda.Stream.synchronize,
+             torch.cuda.Event.synchronize)
+
+    def counted(orig):
+        def wrapper(*a, **kw):
+            n[0] += 1
+            return orig(*a, **kw)
+        return wrapper
+
+    torch.cuda.synchronize = counted(saved[0])
+    torch.cuda.Stream.synchronize = counted(saved[1])
+    torch.cuda.Event.synchronize = counted(saved[2])
+    try:
+        fn()
+    finally:
+        (torch.cuda.synchronize, torch.cuda.Stream.synchronize,
+         torch.cuda.Event.synchronize) = saved
+    return n[0]
 
 
 def _noop():
@@ -606,10 +676,20 @@ def bench_profile_overhead(sf: float, iters: int, block_rows: int,
     round on a shared host (``scripts/overhead_noise.py``), so a wall
     A/B of the two scans resolves about 1% after 90 rounds; it is
     reported beside the verdict (``wall_ab_pct``, the median same-round
-    ratio over the ``iters`` rounds). The ring's verdict stays the wall
-    A/B: its sites spread over the scan's layers (stage charges, byte
-    counters, the end-of-scan stream sync), and its 3% + 2 ms band
-    holds the noise of ``iters`` rounds."""
+    ratio over the ``iters`` rounds). The ring's verdict is counted and
+    timed the same way: the records the ring took in one warm profiled
+    scan with it forced on (stage charges, spans, conveyor and blob
+    events) and the scan's byte counters, replayed ``TRACE_REPS`` times
+    under ``profiled`` with the ring on (profile assembly then computes
+    the query's occupancy from them) and again with it off, plus every
+    device sync the enabled ring adds to a scan: counted (the ring-on
+    scan's host waits on the device less the ring-off scan's; none may
+    be other than the end-of-scan ``_settle``) and timed where they
+    happen, in the ring side's scans of the ``iters`` rounds (the
+    median over rounds of their seconds). The wall A/B of the ring side
+    against profiling on is reported beside it
+    (``timeline_wall_ab_pct``)."""
+    from ydb_tpu_torch.engine import scan as scan_mod
     from ydb_tpu_torch.obs import profile as profile_mod
     from ydb_tpu_torch.obs import timeline, tracing
     from ydb_tpu_torch.workload import tpch
@@ -617,6 +697,15 @@ def bench_profile_overhead(sf: float, iters: int, block_rows: int,
     shard, n = shard or lineitem_shard("profov", sf, block_rows, device,
                                        data)
     prog = tpch.q1_program()
+    settle = scan_mod._settle
+    settle_s: list = []  # the ring side's sync seconds, one sum a round
+
+    def timed_settle(out):
+        t0 = time.perf_counter()
+        try:
+            return settle(out)
+        finally:
+            settle_s[-1] += time.perf_counter() - t0
 
     def run_off():
         return shard.scan(prog)
@@ -634,10 +723,35 @@ def bench_profile_overhead(sf: float, iters: int, block_rows: int,
         # events, which is what this measures)
         timeline.RING.clear()
         timeline.TIMELINE_FORCE = True
+        settle_s.append(0.0)
         try:
             return run_on()
         finally:
             timeline.TIMELINE_FORCE = False
+
+    def ring_reps(on: bool) -> float:
+        """Seconds of ``TRACE_REPS`` profiled statements' ring work, the
+        ring forced ``on`` or off (cleared each statement on both
+        sides, as the ring side of the rounds does)."""
+        timeline.TIMELINE_FORCE = on
+        try:
+            t0 = time.perf_counter()
+            for _ in range(TRACE_REPS):
+                timeline.RING.clear()
+                with profile_mod.profiled("q1"):
+                    for name, cat, dur, traced, args in ring_events:
+                        if timeline.timeline_enabled():
+                            end = time.perf_counter()
+                            timeline.RING.record(
+                                name, cat, end - dur, end,
+                                timeline.current_trace_id() if traced
+                                else 0, args or None)
+                    for key, nbytes in byte_adds:
+                        timeline.add_bytes(key, nbytes)
+            return time.perf_counter() - t0
+        finally:
+            timeline.TIMELINE_FORCE = False
+            timeline.RING.clear()
 
     def trace_reps(on: bool) -> float:
         """Seconds of ``TRACE_REPS`` statements' trace work."""
@@ -665,15 +779,32 @@ def bench_profile_overhead(sf: float, iters: int, block_rows: int,
         rec0 = timeline.RING.recorded
         spans, wraps = _trace_work(shard, prog)
         disabled_events = timeline.RING.recorded - rec0
-        times, _ = _interleaved({"off": run_off, "on": run_on,
-                                 "tl": run_tl}, iters)
+        ring_events, byte_adds, settles = _ring_work(shard, prog)
+        # the syncs the enabled ring adds: none but the timed _settle
+        syncs = {on: _device_syncs(run_tl if on else run_on, device)
+                 for on in (False, True)}
+        added_syncs = syncs[True] - syncs[False]
+        if added_syncs > settles:
+            raise AssertionError(
+                f"the timeline ring adds {added_syncs} device syncs to a "
+                f"scan, {settles} of them timed")
+        settle_s.clear()
+        scan_mod._settle = timed_settle
+        try:
+            times, _ = _interleaved({"off": run_off, "on": run_on,
+                                     "tl": run_tl}, iters)
+        finally:
+            scan_mod._settle = settle
         trace_s = {on: trace_reps(on) for on in (False, True)}
+        ring_s = {on: ring_reps(on) for on in (False, True)}
     finally:
         timeline.TIMELINE_FORCE = prev_force
     best = {k: min(v) for k, v in times.items()}
     median = {k: statistics.median(v) for k, v in times.items()}
     added = (trace_s[True] - trace_s[False]) / TRACE_REPS
-    tl_added = _added(times, "tl", "on")
+    ring_added = (ring_s[True] - ring_s[False]) / TRACE_REPS
+    sync_added = statistics.median(settle_s)
+    tl_added = ring_added + sync_added
     over, tl_over = added / median["off"], tl_added / median["on"]
     out = {
         "rows": n, "sf": sf, "rounds": len(times["off"]),
@@ -683,12 +814,19 @@ def bench_profile_overhead(sf: float, iters: int, block_rows: int,
         "profile_off_rows_per_sec": round(n / best["off"]),
         "profile_on_rows_per_sec": round(n / best["on"]),
         "profile_off_median_seconds": round(median["off"], 6),
+        "profile_on_median_seconds": round(median["on"], 6),
         "profile_added_ms": round(1e3 * added, 4),
         "overhead_pct": round(100 * over, 3),
         "wall_ab_pct": round(100 * _overhead(times, "on", "off"), 2),
         "timeline_on_seconds": round(best["tl"], 6),
+        "timeline_ring_events": len(ring_events),
+        "timeline_byte_adds": len(byte_adds),
+        "timeline_syncs": settles,
+        "timeline_ring_ms": round(1e3 * ring_added, 4),
+        "timeline_sync_ms": round(1e3 * sync_added, 4),
         "timeline_added_ms": round(1e3 * tl_added, 4),
         "timeline_overhead_pct": round(100 * tl_over, 2),
+        "timeline_wall_ab_pct": round(100 * _overhead(times, "tl", "on"), 2),
         "timeline_disabled_events": disabled_events,
     }
     if assert_within is not None:
@@ -1331,23 +1469,24 @@ def main(argv=None) -> int:
         report["chaos_overhead"] = bench_chaos_overhead(
             args.sf, max(3, args.iters), args.block_rows,
             assert_within=(0.5 if args.smoke else 0.01), device=dev)
+    ab_rounds = SMOKE_AB_ROUNDS if args.smoke else max(3, args.iters)
     if args.leaksan_overhead or args.smoke:
         # smoke: tiny run, lax bound (machinery + no-catastrophe
         # guard); real sizes hold the 1% disabled-path budget
         report["leaksan_overhead"] = bench_leaksan_overhead(
-            args.sf, max(3, args.iters), args.block_rows,
+            args.sf, ab_rounds, args.block_rows,
             assert_within=(0.5 if args.smoke else 0.01), device=dev)
     if args.admission_overhead or args.smoke:
         # smoke: tiny run, lax bound (machinery + no-catastrophe
         # guard); real sizes hold the 3% front-door budget
         report["admission_overhead"] = bench_admission_overhead(
-            args.sf, max(3, args.iters),
+            args.sf, ab_rounds,
             assert_within=(0.5 if args.smoke else 0.03), device=dev)
     if args.memsan_overhead or args.smoke:
         # smoke: tiny run, lax bound (machinery + no-catastrophe
         # guard); real sizes hold the 3% warm-Q1 tripwire
         report["memsan_overhead"] = bench_memsan_overhead(
-            args.sf, max(3, args.iters), args.block_rows,
+            args.sf, ab_rounds, args.block_rows,
             assert_within=(0.5 if args.smoke else 0.03), device=dev)
     if args.fusion or args.smoke:
         report["fusion"] = bench_fusion(args.sf, max(3, args.iters),

@@ -17,9 +17,9 @@ per-node scheme caches (the reference's ``ydb_tpu/scheme/board.py``).
 The port's own copy of ``ydb_tpu/scheme/shard.py``: ``SchemeError`` and
 ``SchemeShardCore`` (ACLs included), with the reference's table names,
 keys and JSON encodings, so a schema written by either package boots in
-the other. The actor wrapper ``SchemeShardTablet`` and the scheme board
-wait with the reference's tablet hive (ROADMAP.md queue A, cluster
-plane).
+the other, and the actor wrapper ``SchemeShardTablet``, which publishes
+each DDL to the port's scheme board (``scheme/board.py``). Nothing of the
+reference's module is left out.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Callable
 from ydb_tpu_torch import dtypes
 from ydb_tpu_torch.scheme.model import TableDescription, type_from_str as _type
 from ydb_tpu_torch.tablet.executor import TabletExecutor, Transaction, TxContext
+from ydb_tpu_torch.tablet.hive import TabletActor
 
 
 class SchemeError(Exception):
@@ -376,3 +377,51 @@ class SchemeShardCore:
         self._run(fn)
         self._publish(path, d, pub["v"])
         return desc
+
+
+class SchemeShardTablet(TabletActor):
+    """Actor wrapper: DDL over tablet pipes; replies ("ok", result_json)
+    or ("error", text)."""
+
+    def __init__(self, tablet_id: str, executor: TabletExecutor):
+        super().__init__(tablet_id, executor)
+        self.core = SchemeShardCore(executor)
+        self.core.listeners.append(self._on_publish)
+        self.board: "ActorId | None" = None  # set post-register
+
+    def _on_publish(self, path, desc, version):
+        if self.board is not None:
+            from ydb_tpu_torch.scheme.board import BoardPublish
+
+            self.send(self.board, BoardPublish(path, desc, version))
+
+    def handle(self, message, reply_to):
+        op, args = message[0], message[1:]
+        try:
+            if op == "mkdir":
+                self.core.mkdir(args[0])
+                result = None
+            elif op == "create_table":
+                self.core.create_table(TableDescription.from_json(args[0]))
+                result = None
+            elif op == "drop_table":
+                self.core.drop_table(args[0])
+                result = None
+            elif op == "alter_table":
+                desc = self.core.alter_table(
+                    args[0],
+                    add_columns=[dtypes.Field(n, _type(ts), True)
+                                 for n, ts in args[1]],
+                    drop_columns=list(args[2]),
+                )
+                result = desc.to_json()
+            elif op == "describe":
+                desc = self.core.describe(args[0])
+                result = desc.to_json() if desc else None
+            elif op == "children":
+                result = self.core.children(args[0])
+            else:
+                raise SchemeError(f"unknown op {op}")
+            self.send(reply_to, ("ok", result))
+        except SchemeError as e:
+            self.send(reply_to, ("error", str(e)))
