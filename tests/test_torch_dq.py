@@ -500,6 +500,32 @@ def test_split_by_hash_matches_reference():
                 np.testing.assert_array_equal(g[k], w[k])
 
 
+@pytest.mark.parametrize("n", [2, 3])
+def test_split_block_routes_on_the_device_as_the_reference_splits(n):
+    """A hash fan-out groups a block's rows by destination on the device
+    and cuts the one fetched payload: the parts (rows, order, nulls) are
+    the reference's ``_split_by_hash`` of the same payload; padding rows
+    stay out."""
+    rng = np.random.default_rng(n)
+    k = rng.integers(-(1 << 40), 1 << 40, 700)
+    k[::5] = rng.integers(-3, 3, len(k[::5]))
+    valid = rng.random(700) > 0.2
+    x = rng.integers(0, 1000, 700)
+    sch = tdtypes.schema(("k", tdtypes.INT64), ("x", tdtypes.INT64))
+    blk = tcompute.TableBlock.from_numpy({"k": k, "x": x}, sch,
+                                         {"k": valid}, capacity=1024,
+                                         device="cpu")
+    got = tcompute._split_block(blk, sch, ("k",), n)
+    payload = {"k": k, "__v_k": valid, "x": x,
+               "__v_x": np.ones(700, dtype=bool)}
+    want = rcompute._split_by_hash(
+        payload, rcompute._hash_rows(payload, None, ("k",)), n)
+    assert sum(len(p["k"]) for p in got) == 700
+    for g, w in zip(got, want):
+        for c in payload:
+            np.testing.assert_array_equal(g[c], w[c], err_msg=c)
+
+
 # ---------------- checkpoint and resume ----------------
 
 

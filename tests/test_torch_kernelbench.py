@@ -48,7 +48,8 @@ def test_smoke_json_on_the_cpu(capsys):
     assert report["memsan_overhead"]["warm_unbudgeted"] == 0
     assert report["leaksan_overhead"]["drained"] is True
     assert report["pruning"]["chunks_skipped"] > 0
-    assert "shuffle" not in report
+    assert report["shuffle"]["identical"] is True
+    assert "skew" not in report["shuffle"]
 
 
 def test_group_by_past_512_groups_both_lowerings():
@@ -57,10 +58,16 @@ def test_group_by_past_512_groups_both_lowerings():
     assert out["fused_rows_per_sec"] > 0 and out["peragg_rows_per_sec"] > 0
 
 
-def test_shuffle_names_the_mesh_item():
-    with pytest.raises(kernelbench.MeshNotPorted, match="item 13"):
-        kernelbench.main(["--shuffle", "--device", "cpu"])
-    assert issubclass(kernelbench.MeshNotPorted, NotImplementedError)
+def test_shuffle_names_the_mesh_item(capsys):
+    """``--shuffle`` runs the A/B over the port's shard mesh (it raised
+    until the mesh was ported): the skew case included, every side
+    lossless and colocated."""
+    assert kernelbench.main(["--shuffle", "--device", "cpu", "--json",
+                             "--rows", "5000", "--groups", "7",
+                             "--iters", "1", "--shuffle-rows", "8192"]) == 0
+    sh = json.loads(capsys.readouterr().out)["shuffle"]
+    assert sh["identical"] and sh["capacity_ratio"] >= 4
+    assert sh["skew"]["grows"] >= 1 and sh["skew"]["identical"]
 
 
 def test_profile_verdict_counts_and_times_the_trace_work():

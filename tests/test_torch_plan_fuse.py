@@ -638,11 +638,27 @@ def test_streamed_source_stages_through_fit_blocks(tpch_db, answered,
 
 
 def test_partial_slots_layout_not_ported():
+    """The ``partial_slots`` layout that whole-plan fusion's
+    ``compiled(..., partial_slots=True)`` asks for now lowers (it came
+    with the mesh scan): Q1's group-by keeps every dense slot in place,
+    dead slots invalid, where the default layout compacts them."""
     from ydb_tpu_torch.ssa.compiler import _compile_program
 
-    with pytest.raises(NotImplementedError, match="partial_slots"):
-        _compile_program(tpch.q1_program(), tpch.LINEITEM_SCHEMA,
-                         partial_slots=True)
+    data = tpch.TpchData(sf=0.001, seed=3)
+    src = ColumnSource(data.tables["lineitem"], tpch.LINEITEM_SCHEMA,
+                       data.dicts)
+    (blk,) = src.blocks(1 << 14, device="cpu")
+    slots = _compile_program(tpch.q1_program(), tpch.LINEITEM_SCHEMA,
+                             data.dicts, partial_slots=True)
+    dense = _compile_program(tpch.q1_program(), tpch.LINEITEM_SCHEMA,
+                             data.dicts)
+    n = slots.group_layout[1]
+    assert slots.group_layout[0] == "dense_slots"
+    assert dense.group_layout == ("dense", n)
+    out = slots(blk)
+    assert int(out.length) == n
+    live = out.columns["count_order"].validity
+    assert int(live.sum()) == int(dense(blk).length) < n
 
 
 # ---------------- on the card ----------------

@@ -314,6 +314,15 @@ CLUSTER_PLANE_MODULES = (
     "ydb_tpu_torch.runtime.nodebroker",
 )
 
+#: DQ across processes, the native host library and the shard mesh
+#: (ROADMAP.md queue A items 13a and 13b's substrate)
+WIRE_MESH_MODULES = (
+    "ydb_tpu_torch.dq.node_service", "ydb_tpu_torch.native",
+    "ydb_tpu_torch.native.build", "ydb_tpu_torch.parallel",
+    "ydb_tpu_torch.parallel.mesh", "ydb_tpu_torch.parallel.dist",
+    "ydb_tpu_torch.parallel.shuffle",
+)
+
 
 def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
     """Every module of ydb_tpu_torch, and chip_smoke.py, imports with jax
@@ -338,7 +347,7 @@ def test_port_imports_no_jax_and_nothing_of_ydb_tpu():
            + STORAGE_PATH_MODULES + SERVING_PATH_MODULES
            + ANALYSIS_MODULES + ROW_STORE_MODULES + MONITORING_MODULES
            + GRPC_MODULES + STREAMING_MODULES + BLOBSTORAGE_MODULES
-           + CLUSTER_PLANE_MODULES,))
+           + CLUSTER_PLANE_MODULES + WIRE_MESH_MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

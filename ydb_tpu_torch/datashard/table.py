@@ -191,7 +191,6 @@ class RowTable:
 
     def _encode_columns(self, columns: dict, validity=None) -> list[dict]:
         """Columnar input -> list of physical row dicts (None = NULL)."""
-        n = len(next(iter(columns.values())))
         enc: dict[str, list] = {}
         for name in columns:
             f = self.schema.field(name)
@@ -201,17 +200,18 @@ class RowTable:
                 enc[name] = [int(d.add(_as_bytes(v))) for v in vals]
             else:
                 arr = np.asarray(vals)
-                enc[name] = [_py(v) for v in arr]
-        rows = []
-        for i in range(n):
-            row = {}
-            for name in enc:
-                ok = True
-                if validity is not None and name in validity:
-                    ok = bool(np.asarray(validity[name])[i])
-                row[name] = enc[name][i] if ok else None
-            rows.append(row)
-        return rows
+                if arr.dtype == object:
+                    enc[name] = [_py(v) for v in arr]
+                else:
+                    # ``tolist`` gives the plain python values ``_py``
+                    # gives (bools as ints, as the WAL's JSON holds them)
+                    enc[name] = (arr.astype(np.int64)
+                                 if arr.dtype == np.bool_ else arr).tolist()
+            if validity is not None and name in validity:
+                enc[name] = [v if ok else None for v, ok in zip(
+                    enc[name], np.asarray(validity[name]).tolist())]
+        names = list(enc)
+        return [dict(zip(names, vals)) for vals in zip(*enc.values())]
 
     def _key_of(self, row: dict) -> tuple:
         return tuple(row[c] for c in self.pk_columns)

@@ -11,7 +11,11 @@ Device work happens inside the task: each arriving block lifts to a
 TableBlock on the graph's device (CUDA unless the caller names another),
 runs the stage's compiled SSA program there, and the result travels the
 channels host-side as a numpy payload, as in the reference: the spiller,
-checkpoints and a later wire transport stay byte-compatible with it.
+checkpoints and the wire transport (``dq/node_service.py``) stay
+byte-compatible with it. A hash fan-out groups a block's rows by
+destination on the device before the one fetch (``_split_block``), so
+the host cuts the payload into slices instead of gathering each column
+once a destination; the parts are the reference's.
 Where the reference jits the per-block program and the fused
 merge-plus-final, the port calls them eagerly on the stage's device.
 Under an active trace each task is a ``dq.task`` span carrying its
@@ -29,8 +33,9 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch import dtypes
-from ydb_tpu_torch.analysis import host_ok
-from ydb_tpu_torch.blocks.block import TableBlock, concat_blocks, device_aux
+from ydb_tpu_torch.analysis import host_ok, memsan
+from ydb_tpu_torch.blocks.block import (Column, TableBlock, concat_blocks,
+                                        device_aux)
 from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.dq.graph import (
     ChannelSpec,
@@ -142,7 +147,41 @@ def _hash_rows(payload: dict, schema, keys) -> np.ndarray:
     )
 
 
+def _route_block(block: TableBlock, keys, n: int) -> TableBlock:
+    """The block's rows grouped by destination on its device, rows in
+    order within each group (a stable sort by ``hash % n``; dead rows
+    last): the device hash of ``parallel.shuffle`` gives
+    ``_hash_rows``'s bits."""
+    from ydb_tpu_torch.parallel.shuffle import dest_shard, hash_rows
+
+    # the routing's tensors are the dispatch's working set
+    with memsan.seam():
+        dest = dest_shard(hash_rows([block.columns[k] for k in keys]), n)
+        order = torch.argsort(torch.where(block.row_mask(), dest, n),
+                              stable=True)
+        cols = {k: Column(c.data[order], c.validity[order])
+                for k, c in block.columns.items()}
+        return TableBlock(cols, block.length, block.schema)
+
+
+def _split_block(block: TableBlock, schema, keys, n: int) -> list[dict]:
+    """The parts ``_split_by_hash`` gives for this block's payload: rows
+    grouped by destination on the device (``_route_block``), fetched
+    once, and cut into slices where the host hash of the fetched keys
+    says each destination starts; no host gather."""
+    payload = block_to_payload(_route_block(block, keys, n))
+    dest = (_hash_rows(payload, schema, keys) % np.uint64(n)).astype(
+        np.int64)
+    if len(dest) and (dest[1:] < dest[:-1]).any():
+        raise AssertionError("device and host row hashes disagree")
+    bounds = np.r_[0, np.cumsum(np.bincount(dest, minlength=n))].tolist()
+    return [{k: v[bounds[d]:bounds[d + 1]] for k, v in payload.items()}
+            for d in range(n)]
+
+
 def _split_by_hash(payload: dict, h: np.ndarray, n: int) -> list[dict]:
+    """Host routing of a fetched payload (the reference's; the tests
+    hold ``_split_block`` against it)."""
     if n == 1:
         return [payload]
     dest = (h % np.uint64(n)).astype(np.int64)
@@ -576,25 +615,29 @@ class ComputeActor(Actor):
     def _emit(self, block: TableBlock):
         if int(block.capacity) == 0:
             return
-        payload = block_to_payload(block)
         out = self.task.stage_spec.output
         if isinstance(out, ResultOutput):
-            self.send(self.result_target, ResultData(payload, False))
+            self.send(self.result_target,
+                      ResultData(block_to_payload(block), False))
             return
-        # each consumer edge gets the full routed stream independently;
-        # the row hash is only needed when some edge actually fans out
-        h = None
-        if isinstance(out, HashPartition) and any(
-                len(chans) > 1 for chans in self._consumer_groups):
-            h = _hash_rows(payload, self.compiled.out_schema, out.keys)
+        # each consumer edge gets the full routed stream independently:
+        # an edge that fans out to n tasks gets the block routed by row
+        # hash (once per n), the others the whole payload (fetched once)
+        payload = None
+        routed: dict[int, list[dict]] = {}
         for chans in self._consumer_groups:
-            if isinstance(out, HashPartition) and len(chans) > 1:
-                for ch, part in zip(chans,
-                                    _split_by_hash(payload, h, len(chans))):
+            n = len(chans)
+            if isinstance(out, HashPartition) and n > 1:
+                if n not in routed:
+                    routed[n] = _split_block(
+                        block, self.compiled.out_schema, out.keys, n)
+                for ch, part in zip(chans, routed[n]):
                     if len(next(iter(part.values()))) == 0:
                         continue
                     self._send_channel(ch, part)
             else:  # Broadcast/UnionAll, or a single-task hash consumer
+                if payload is None:
+                    payload = block_to_payload(block)
                 for ch in chans:
                     self._send_channel(ch, payload)
 

@@ -11,7 +11,8 @@ fault as a miss (the scan degrades mid-stream to the staged host path);
 promotions and evictions fire the ``resident.promote`` /
 ``resident.evict`` probes; blocks served from the tier and blocks staged
 beside them add to the timeline's ``resident_bytes`` / ``staged_bytes``.
-The mesh device slices come with ROADMAP.md queue A item 13.
+The mesh device slices come with the mesh executor, ROADMAP.md queue A
+item 13b.
 
 The third level of the storage hierarchy (blob store -> host blocks ->
 device-resident columns) and the engine-side answer to ROADMAP item 1:

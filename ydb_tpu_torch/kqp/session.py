@@ -49,7 +49,7 @@ A row table created ``WITH (changefeed = on)`` gets the topic
 
 Left out, for a later item of ROADMAP.md queue A, with a typed
 ``PlanError`` naming it where a statement reaches it: the mesh executor
-(item 13).
+(item 13b).
 
 Observability and chaos: the ``kqp.plan_cache`` probe fires per plan
 lookup and ``query.slow`` once per statement past

@@ -26,9 +26,12 @@
     DirBlobStore scan: rows/s both sides, the measured
     ``movement|compute`` overlap coefficient of one pipelined run, and
     results asserted bit-identical between the two sides;
-  * shuffle (``--shuffle``) — the stats-sized all_to_all repartition
-    A/B needs the mesh; it raises :class:`MeshNotPorted` until the
-    multi-device port (ROADMAP.md queue A item 13).
+  * shuffle (``--shuffle``) — all_to_all repartition over the shard
+    mesh (``parallel/shuffle.py``) with stats-sized buckets (count-min
+    bound, ``shuffle.size_buckets``) vs always-sufficient full-capacity
+    buckets: row multisets equal, keys colocated, the uniform-key bucket
+    >=4x smaller, and a 100%-skew overflow that grows the bucket and
+    re-exchanges losslessly (the skew case with ``--shuffle`` only).
 
 Flags: ``--rows`` ``--groups`` ``--aggs`` ``--iters`` ``--block-rows``
 ``--pruning`` ``--streaming`` ``--profile-overhead``
@@ -37,7 +40,7 @@ through the full session path) ``--memsan-overhead`` (memory
 sanitizer disarmed vs armed warm Q1, zero unbudgeted allocations
 asserted on the armed side) ``--fusion``
 ``--shuffle``
-``--shuffle-rows`` ``--sf`` (scale
+``--shuffle-rows`` (rows per shard) ``--sf`` (scale
 factor for the overhead/fusion benches) ``--json`` (report on stdout) and
 ``--smoke`` (tiny sizes, correctness-only; wired into tier-1 as a
 non-slow test with ``--device cpu``).
@@ -62,11 +65,6 @@ import time
 
 import numpy as np
 import torch
-
-
-class MeshNotPorted(NotImplementedError):
-    """A bench that needs the multi-device mesh, which the port does not
-    have yet (ROADMAP.md queue A item 13)."""
 
 
 def _sync(device) -> None:
@@ -1371,14 +1369,183 @@ def bench_batching(sf: float, iters: int, batch: int = 4,
     return out
 
 
-def bench_shuffle() -> dict:
-    """Stats-sized vs full-capacity shuffle A/B on the device mesh: it
-    repartitions over the mesh's devices, which the port does not have
-    yet."""
-    raise MeshNotPorted(
-        "kernelbench --shuffle needs the multi-device mesh "
-        "(torch.distributed all_to_all), which comes with ROADMAP.md "
-        "queue A item 13")
+#: fan-out of the uniform-key case: the stats bucket is mean load x
+#: ``SAFETY_MARGIN`` (1.5), so under 8 destinations it cannot come out
+#: 4x smaller than the full bucket (4 shards: 0.375 of it at best)
+SHUFFLE_UNIFORM_SHARDS = 8
+
+
+def bench_shuffle(rows_per_shard: int, iters: int, with_skew: bool = True,
+                  device=None, keys: "np.ndarray | None" = None,
+                  n_shards: int = 4) -> dict:
+    """Stats-sized vs full-capacity shuffle A/B on the shard mesh
+    (``parallel/shuffle.py``), in the reference's three cases.
+
+    Uniform random keys repartitioned over ``SHUFFLE_UNIFORM_SHARDS``
+    shards with the send bucket sized two ways: full local capacity
+    (always sufficient, ships n_shards x capacity rows) vs
+    ``shuffle.size_buckets`` (mean load x safety margin + the count-min
+    heavy-hitter bound from a real sketch over the keys). Row multisets
+    asserted equal between the sides, every key on the shard its hash
+    names (so colocated), and the stats bucket must be >=4x smaller. With ``keys`` (a caller's key
+    column, e.g. ClickBench URL ids), the same A/B over those keys cut
+    into ``n_shards`` contiguous shards, equal and colocated on both
+    sides; an undersized stats bucket grows to the reported worst count
+    and re-exchanges. A 100%-skew case (every key identical, no stats,
+    ``n_shards`` shards) then exercises the overflow protocol: the
+    undersized exchange reports its worst per-destination count, the
+    bucket grows to that shape class, and the re-exchange is asserted
+    lossless. Seconds are host clock around an exchange that ends in a
+    device sync, the sides in turns."""
+    from ydb_tpu_torch import dtypes, native
+    from ydb_tpu_torch.blocks.block import TableBlock
+    from ydb_tpu_torch.device import resolve_device
+    from ydb_tpu_torch.parallel import shuffle
+    from ydb_tpu_torch.parallel.mesh import make_mesh
+    from ydb_tpu_torch.ssa.plan_fuse import shape_class
+    from ydb_tpu_torch.stats.sketch import CountMinSketch
+
+    dev = resolve_device(device)
+    sch = dtypes.schema(("k", dtypes.INT64), ("v", dtypes.INT64))
+
+    def stage(key_arrays, per):
+        # v numbers every row across the mesh (shard by shard), so lost
+        # or doubled rows show
+        starts = np.cumsum([0] + [len(k) for k in key_arrays])
+        return [TableBlock.from_numpy(
+            {"k": k, "v": np.arange(len(k), dtype=np.int64) + starts[d]},
+            sch, capacity=per, device=dev)
+            for d, k in enumerate(key_arrays)]
+
+    def check(out, keys_by_row, label):
+        """Every row exactly once with its own key (``v`` numbers the
+        rows), and on the shard its key hashes to (the host hash of
+        ``ydb_tpu_torch.native``, which the device hash must equal):
+        linear passes, no sort."""
+        seen = np.zeros(len(keys_by_row), dtype=np.int64)
+        for i, blk in enumerate(out):
+            data, valid = blk.host_columns()
+            k, v = data["k"], data["v"]
+            assert np.array_equal(keys_by_row[v], k), \
+                f"{label} exchange changed keys"
+            seen += np.bincount(v, minlength=len(keys_by_row))
+            dest = native.hash_rows([k], [valid["k"]]) % np.uint64(len(out))
+            assert (dest == i).all(), f"{label}: a key on the wrong shard"
+        assert (seen == 1).all(), f"{label} exchange lost or doubled rows"
+
+    def exchange(mesh, blocks, B):
+        """Repartition at bucket B, growing it to the worst count and
+        exchanging again until nothing overflowed."""
+        grows = 0
+        while True:
+            out, worst = shuffle.repartition(mesh, blocks, ["k"],
+                                             bucket_rows=B,
+                                             with_counts=True)
+            w = int(worst)
+            if w <= B:
+                return out, B, grows
+            B = shape_class(w)
+            grows += 1
+
+    def ab(key_arrays, per, label):
+        t_case = time.perf_counter()
+        mesh = make_mesh(len(key_arrays), devices=[dev])
+        n = len(key_arrays)
+        sk = CountMinSketch()
+        for arr in key_arrays:
+            sk.add_many(arr)
+        old = shuffle.SHUFFLE_STATS_FORCE
+        shuffle.SHUFFLE_STATS_FORCE = True
+        try:
+            stats_B = shuffle.size_buckets(per, n, heavy=sk.max_freq())
+        finally:
+            shuffle.SHUFFLE_STATS_FORCE = old
+        want = np.concatenate(key_arrays)
+        blocks = stage(key_arrays, per)
+        _sync(dev)
+        setup_s = time.perf_counter() - t_case
+        out = {"rows": len(want), "shards": n, "rows_per_shard": per,
+               "full_bucket_rows": per, "heavy_bound": sk.max_freq(),
+               "stats_bucket_rows_sized": stats_B}
+        results, buckets = {}, {}
+        t0 = time.perf_counter()
+        for side, B in (("stats", stats_B), ("full", per)):
+            blk, B, grows = exchange(mesh, blocks, B)
+            assert side == "stats" or grows == 0, (label, side, grows)
+            results[side], buckets[side] = blk, B
+            out[f"{side}_grows"] = grows
+        out["stats_bucket_rows"] = buckets["stats"]
+        out["capacity_ratio"] = round(per / buckets["stats"], 2)
+        for side in ("stats", "full"):
+            # every shard sends n buckets of B rows each exchange
+            out[f"{side}_bytes_per_shard"] = \
+                shuffle.exchange_bytes_per_device(sch, n, buckets[side])
+
+        def run(B):
+            def go():
+                shuffle.repartition(mesh, blocks, ["k"], bucket_rows=B)
+                _sync(dev)
+            return go
+
+        _sync(dev)
+        first_s = time.perf_counter() - t0
+        wall, _ = _interleaved({side: run(buckets[side])
+                                for side in ("stats", "full")}, iters)
+        for side, ts in wall.items():
+            out[f"{side}_rows_per_sec"] = round(len(want) / min(ts))
+        out["shuffle_speedup"] = round(min(wall["full"]) /
+                                       min(wall["stats"]), 2)
+        t0 = time.perf_counter()
+        for side, blk in results.items():
+            check(blk, want, f"{label} {side}")
+        out["identical"] = True
+        # host seconds of the case: staging with the sketch, the first
+        # exchanges (grows included), the checks, and all of it
+        out.update(setup_s=setup_s, first_exchanges_s=first_s,
+                   check_s=time.perf_counter() - t0,
+                   seconds=time.perf_counter() - t_case)
+        return out
+
+    rng = np.random.default_rng(11)
+    n_uni = SHUFFLE_UNIFORM_SHARDS
+    uniform = [rng.integers(0, 1 << 30, rows_per_shard).astype(np.int64)
+               for _ in range(n_uni)]
+    report: dict = {"device": (torch.cuda.get_device_name(dev)
+                               if dev.type == "cuda" else "cpu")}
+    report.update(ab(uniform, rows_per_shard, "uniform"))
+    assert report["stats_grows"] == 0, report
+    assert report["capacity_ratio"] >= 4, (
+        f"uniform keys sized {report['stats_bucket_rows']} vs full "
+        f"{rows_per_shard}: ratio {report['capacity_ratio']} < 4")
+
+    if keys is not None:
+        per = -(-len(keys) // n_shards)
+        parts = [np.asarray(keys[i * per:(i + 1) * per], dtype=np.int64)
+                 for i in range(n_shards)]
+        report["keyed"] = ab(parts, per, "keyed")
+
+    # 100% skew, no stats: every row routes to one destination, so the
+    # mean-sized bucket must overflow, report its worst count, grow to
+    # that shape class, and re-exchange losslessly
+    if not with_skew:  # smoke keeps tier-1 cheap; --shuffle runs it
+        return report
+    per = rows_per_shard
+    mesh = make_mesh(n_shards, devices=[dev])
+    old = shuffle.SHUFFLE_STATS_FORCE
+    shuffle.SHUFFLE_STATS_FORCE = True
+    try:
+        B = shuffle.size_buckets(per, n_shards, heavy=0)
+    finally:
+        shuffle.SHUFFLE_STATS_FORCE = old
+    skewed = [np.full(per, 42, dtype=np.int64)] * n_shards
+    blk, grown, grows = exchange(mesh, stage(skewed, per), B)
+    skew = {"shards": n_shards, "initial_bucket_rows": B, "grows": grows,
+            "grown_bucket_rows": grown}
+    assert grows >= 1, "skew case never overflowed"
+    check(blk, np.concatenate(skewed), "skew grow")
+    skew["identical"] = True
+    report["skew"] = skew
+    return report
 
 
 def main(argv=None) -> int:
@@ -1416,8 +1583,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4,
                     help="members per micro-batch for --batching")
     ap.add_argument("--shuffle", action="store_true",
-                    help="stats-sized vs full-capacity shuffle A/B (needs "
-                         "the mesh: ROADMAP.md queue A item 13)")
+                    help="stats-sized vs full-capacity shuffle A/B")
+    ap.add_argument("--shuffle-rows", type=int, default=1 << 15,
+                    help="rows per shard for --shuffle")
     ap.add_argument("--device", default="cuda",
                     help="device the benches run on (default cuda)")
     ap.add_argument("--sf", type=float, default=0.05,
@@ -1434,8 +1602,7 @@ def main(argv=None) -> int:
         args.block_rows = 2048
         args.chunk_rows = 256
         args.sf = 0.01
-    if args.shuffle:
-        bench_shuffle()
+        args.shuffle_rows = 8192
 
     from ydb_tpu_torch.device import resolve_device
 
@@ -1495,6 +1662,10 @@ def main(argv=None) -> int:
         report["batching"] = bench_batching(
             args.sf, max(1, args.iters),
             batch=(3 if args.smoke else args.batch), device=dev)
+    if args.shuffle or args.smoke:
+        report["shuffle"] = bench_shuffle(
+            args.shuffle_rows, args.iters, with_skew=args.shuffle,
+            device=dev)
     if args.json:
         print(json.dumps(report))
     else:
@@ -1591,6 +1762,14 @@ def main(argv=None) -> int:
                   f"{ba['dedup_seconds_per_statement']}s/stmt "
                   f"(x{ba['dedup_speedup']}, "
                   f"identical={ba['identical']})")
+        if "shuffle" in report:
+            sh = report["shuffle"]
+            print(f"shuffle rows={sh['rows']} shards={sh['shards']}: "
+                  f"stats {sh['stats_rows_per_sec']} rows/s vs full "
+                  f"{sh['full_rows_per_sec']} rows/s "
+                  f"(x{sh['shuffle_speedup']}, bucket "
+                  f"{sh['stats_bucket_rows']} vs {sh['full_bucket_rows']}"
+                  f" rows, identical={sh['identical']})")
     return 0
 
 

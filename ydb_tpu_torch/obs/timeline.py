@@ -34,8 +34,9 @@ A/B asserts the disabled path stays inside the profiling budget.
 The port's own copy of ``ydb_tpu/obs/timeline.py``. Byte counts come
 from tensor and array metadata (``numel() * element_size()``,
 ``nbytes``), never from a value read off the device, so counting adds
-no sync. The per-device shuffle bytes (``shuffle_bytes_dev<i>``) come
-with the multi-device port (ROADMAP.md queue A item 13). The demo runs
+no sync. The per-device shuffle bytes (``shuffle_bytes_dev<i>``, from
+``parallel.shuffle.exchange_bytes_per_device``) come with the mesh
+executor (ROADMAP.md queue A item 13b). The demo runs
 on CUDA unless ``--device cpu`` asks for the CPU.
 """
 

@@ -27,7 +27,8 @@ count, so the reference's statistics-based join sizing
 (``Database.table_stats`` into ``plan_to_stages(estimator=...)``) has
 nothing to size here and is left out. The ``fuse.trace`` chaos site
 declines fusion before any capture, so the walk answers. Not in the
-port yet: the mesh executor (ROADMAP.md queue A item 13).
+port yet: the mesh executor (ROADMAP.md queue A item 13b; its
+substrate, ``parallel/``, is ported).
 
 Spans (``obs/tracing.py``; no-ops outside an activated trace): ``scan``,
 ``transform``, ``dq`` and ``plan.fuse``, with the compile-cache hit or

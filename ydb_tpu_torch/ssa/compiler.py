@@ -56,6 +56,8 @@ class CompiledProgram:
 
     ``group_layout`` describes the group-by output layout:
       ("keyless", 1)      — single-row global aggregate
+      ("dense_slots", n)  — dense ids, uncompacted: every slot in place
+                            (``partial_slots``; mesh-mergeable)
       ("dense", n)        — dense ids, compacted but shape-stable (n slots)
       ("compact", None)   — compacted rows
       (None, None)        — no group-by in the program
@@ -82,6 +84,7 @@ class _Lowering:
 
     def __init__(self, schema: dtypes.Schema, dicts: DictionarySet | None,
                  key_spaces: dict[str, int] | None,
+                 partial_slots: bool = False,
                  dict_aliases: dict[str, str] | None = None):
         self.schema = schema
         self.dicts = dicts
@@ -89,6 +92,10 @@ class _Lowering:
         # column -> source column whose dictionary it carries (aggregate
         # outputs like MIN(s) AS lo keep s's dictionary)
         self.dict_aliases = dict(dict_aliases or {})
+        # partial_slots: keep dense group-by states in their slots
+        # (uncompacted) so per-shard states align elementwise for
+        # psum/pmin/pmax merging over the mesh
+        self.partial_slots = partial_slots
         self.group_layout: tuple = (None, None)
         # advisory NDV-based distinct-group estimate (compile_program)
         self.group_est: float | None = None
@@ -133,15 +140,9 @@ def _compile_program(
 ) -> CompiledProgram:
     """The span-free lowering entry point that whole-plan fusion
     (``ssa/plan_fuse.py``) calls for every fragment, with the reference's
-    signature (its one ``ssa.compile`` span covers the whole build); the
-    ``partial_slots`` layout (dense group-by states kept in their slots)
-    comes with the mesh executor."""
-    if partial_slots:
-        raise NotImplementedError(
-            "partial_slots (the dense_slots group-by layout) is not in the "
-            "port yet")
-    return _lower_program(program, schema, dicts, key_spaces, dict_aliases,
-                          group_est)
+    signature (its one ``ssa.compile`` span covers the whole build)."""
+    return _lower_program(program, schema, dicts, key_spaces, partial_slots,
+                          dict_aliases, group_est)
 
 
 def compile_program(
@@ -149,16 +150,22 @@ def compile_program(
     schema: dtypes.Schema,
     dicts: DictionarySet | None = None,
     key_spaces: dict[str, int] | None = None,
+    partial_slots: bool = False,
     dict_aliases: dict[str, str] | None = None,
     group_est: float | None = None,
 ) -> CompiledProgram:
+    """Lower ``program`` over ``schema``. ``partial_slots`` keeps a
+    dense group-by's states in their slots, uncompacted (the
+    ``dense_slots`` layout: dead slots carry invalid values and zero
+    counts), so per-shard partial states align elementwise for the mesh
+    merge (``parallel/dist.py``)."""
     # program lowering is attributed to the active query trace (the
     # "ssa.compile" spans are the compile half of the compile-vs-execute
     # split). NULL span when no trace is active.
     with tracing.span("ssa.compile") as _sp:
         _sp.set(steps=len(program.steps), cols=len(schema.names))
         return _lower_program(program, schema, dicts, key_spaces,
-                              dict_aliases, group_est)
+                              partial_slots, dict_aliases, group_est)
 
 
 def _lower_program(
@@ -166,6 +173,7 @@ def _lower_program(
     schema: dtypes.Schema,
     dicts: DictionarySet | None = None,
     key_spaces: dict[str, int] | None = None,
+    partial_slots: bool = False,
     dict_aliases: dict[str, str] | None = None,
     group_est: float | None = None,
 ) -> CompiledProgram:
@@ -176,7 +184,11 @@ def _lower_program(
 
     syncsan.count(compiles=1)
     out_nullable = _verify.check_program(program, schema).out_nullable
-    ctx = _Lowering(schema, dicts, key_spaces, dict_aliases)
+    if partial_slots and program.group_by is not None:
+        # slot layouts keep dead group slots in place (invalid values,
+        # zero counts) so every output column is effectively nullable
+        out_nullable = {n: True for n in out_nullable}
+    ctx = _Lowering(schema, dicts, key_spaces, partial_slots, dict_aliases)
     # advisory distinct-group estimate (stats.cost NDV product): picks
     # between equally-exact group-by tiers; never a correctness bound
     ctx.group_est = group_est
@@ -1028,12 +1040,14 @@ def _resolve_group_by(ctx: _Lowering, step: GroupByStep, cur_types,
     num_groups = bound_product or 0
     dense = bound_product is not None and \
         bound_product <= _DENSE_GROUP_LIMIT
-    if dense and ctx.group_est is not None \
+    if dense and ctx.group_est is not None and not ctx.partial_slots \
             and num_groups > 64 and num_groups > 8 * ctx.group_est:
         # NDV says the mixed-radix slot space is mostly dead (e.g. two
         # 100-ary keys with 50 real combinations): the sorted tier at
         # bound_product capacity beats scattering into dead slots. Both
-        # tiers are exact — this is purely a cost choice.
+        # tiers are exact — this is purely a cost choice. partial_slots
+        # callers need the slot layout for mesh psum merging, so they
+        # keep dense.
         dense = False
 
     out_types: dict[str, dtypes.LogicalType] = {}
@@ -1068,8 +1082,11 @@ def _resolve_group_by(ctx: _Lowering, step: GroupByStep, cur_types,
     b_tuple = tuple(bounds) if dense else ()
     explicit_cap = step.max_groups
     group_bound = bound_product  # exact cap for the sorted tier
+    keep_slots = ctx.partial_slots and (dense or not keys)
     if not keys:
         ctx.group_layout = ("keyless", 1)
+    elif keep_slots:
+        ctx.group_layout = ("dense_slots", num_groups)
     elif dense:
         # dense group-ids, compacted output: shape is num_groups whatever
         # the input capacity, so partial states fold incrementally
@@ -1404,7 +1421,11 @@ def _resolve_group_by(ctx: _Lowering, step: GroupByStep, cur_types,
             new_env, group_live = trace_peragg(
                 env, aux, live, gid, ng, kcols)
 
-        if key_names and not use_dense:
+        if key_names and keep_slots:
+            # mesh-mergeable layout: every slot stays in place; dead slots
+            # carry invalid values and zero counts
+            length = torch.full((), ng, dtype=torch.int32, device=dev)
+        elif key_names and not use_dense:
             # sorted path: groups already dense [0, n)
             length = ng_scalar
         elif not key_names:

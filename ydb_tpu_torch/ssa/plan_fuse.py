@@ -79,7 +79,8 @@ overrides it in-process); ``YDB_TPU_TORCH_FUSE_MAX_ROWS`` moves the
 cutoff. A build is one ``ssa.compile`` span; while the data-movement
 timeline is on, each replay's host enqueue is one ``plan.dispatch``
 interval (no sync is added). Not in the port yet: the mesh lowering
-that subclasses ``PlanLowering`` (ROADMAP.md queue A item 13).
+that subclasses ``PlanLowering`` (ROADMAP.md queue A item 13b, over the
+shard mesh of ``parallel/``).
 
 Sanitizer hooks: a capture reports itself to the sync sanitizer
 (``syncsan.count(captures=1)``); memsan charges each dispatch's output

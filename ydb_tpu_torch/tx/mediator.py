@@ -4,14 +4,14 @@ Mirror of the reference's mediator + time-cast pair (SURVEY §2.5
 mediator row; ydb/core/tx/mediator, time_cast.cpp): the coordinator
 plans steps, the MEDIATOR fans completed steps out to subscribers, and
 each node keeps a local TIME CACHE so readers learn the current
-consistent snapshot without a coordinator round trip. Cross-process,
-the subscription rides the interconnect (a callback that sends a step
-message); in-process it is a direct call.
+consistent snapshot without a coordinator round trip. The fan-out is
+an in-process callback (``Coordinator.subscribe_completed``).
 
-The port's own copy of ``ydb_tpu/tx/mediator.py`` over the port's
-``Coordinator.subscribe_completed``; it leaves nothing out (the
-cross-process subscription comes with the interconnect, ROADMAP.md
-queue A item 13).
+The port's own copy of ``ydb_tpu/tx/mediator.py``; it leaves nothing
+out. The reference's docstring says that across processes the
+subscription rides the interconnect (a callback that sends a step
+message), but the reference has no code for it, and the port adds
+none.
 """
 
 from __future__ import annotations

@@ -204,12 +204,62 @@ def _make_comment_pool(rng, size: int, n_words: int = 5) -> list[bytes]:
 
 def _encode_values(dicts: DictionarySet, col: str, values) -> np.ndarray:
     """Bulk encode a (possibly huge, mostly-distinct) value list: register
-    each distinct value once, then map by index — O(n log n) instead of n
-    Python dict probes."""
-    arr = np.asarray(values, dtype=object)
+    each distinct value once, in byte order, then map by index — O(n log
+    n) instead of n Python dict probes. ``values`` may be a list of bytes
+    or a fixed-width byte array (``S`` dtype, which sorts as the bytes
+    do: no value here ends in a NUL byte, which that dtype would drop)."""
+    arr = values if isinstance(values, np.ndarray) else np.array(
+        values, dtype=bytes)
     uniq, inv = np.unique(arr, return_inverse=True)
-    ids = _register(dicts, col, list(uniq))
+    d = dicts.for_column(col)
+    # a fresh column takes its distinct values in one update (the ids
+    # one add each would give)
+    ids = (d.extend(uniq.tolist()) if not len(d)
+           else _register(dicts, col, uniq.tolist()))
     return ids[inv].astype(np.int32)
+
+
+def _encode_joined(dicts: DictionarySet, col: str, sylls, picks
+                   ) -> np.ndarray:
+    """``_encode_values`` of ``b" ".join(sylls[k][picks[k][i]] ...)`` for
+    every row i, with each distinct pick combination joined once: no
+    syllable holds a space, so distinct combinations are distinct
+    strings, and the dictionary gets the same values in the same
+    order."""
+    code = np.zeros(len(picks[0]), dtype=np.int64)
+    for s, p in zip(sylls, picks):
+        code = code * len(s) + p
+    ucode, inv = np.unique(code, return_inverse=True)
+    parts = []
+    for s in reversed(sylls):
+        parts.append(ucode % len(s))
+        ucode = ucode // len(s)
+    parts.reverse()
+    values = np.array(sylls[0], dtype=bytes)[parts[0]]
+    for s, p in zip(sylls[1:], parts[1:]):
+        values = np.char.add(np.char.add(values, b" "),
+                                np.array(s, dtype=bytes)[p])
+    return _encode_values(dicts, col, values)[inv]
+
+
+def _encode_numbered(dicts: DictionarySet, col: str, fmt: bytes,
+                     nums: np.ndarray) -> np.ndarray:
+    """``_encode_values`` of ``fmt % n`` for each n of ``nums``, each
+    distinct number formatted once."""
+    unum, inv = np.unique(nums, return_inverse=True)
+    return _encode_values(dicts, col,
+                          [fmt % n for n in unum.tolist()])[inv]
+
+
+def _zero_padded(prefix: bytes, n: int, width: int = 9) -> np.ndarray:
+    """``prefix + b"%0<width>d" % k`` for k = 1..n, as a fixed-width byte
+    array."""
+    k = np.arange(1, n + 1, dtype=np.int64)
+    out = np.empty((n, len(prefix) + width), dtype=np.uint8)
+    out[:, :len(prefix)] = np.frombuffer(prefix, dtype=np.uint8)
+    for j in range(width):
+        out[:, len(prefix) + width - 1 - j] = ord("0") + (k // 10 ** j) % 10
+    return out.view(f"S{out.shape[1]}").ravel()
 
 
 class TpchData:
@@ -330,14 +380,18 @@ class TpchData:
         }
 
     @staticmethod
-    def _phones(rng, nationkey: np.ndarray) -> list[bytes]:
+    def _phones(rng, nationkey: np.ndarray) -> np.ndarray:
         """dbgen phone format: 'CC-xxx-xxx-xxxx', CC = 10 + nationkey
-        (q22 reads substring(c_phone, 1, 2) as the country code)."""
+        (q22 reads substring(c_phone, 1, 2) as the country code), as a
+        fixed-width byte array (CC has two digits: nationkey < 25)."""
         digits = rng.integers(0, 10, (len(nationkey), 10))
-        return [
-            b"%d-%d%d%d-%d%d%d-%d%d%d%d" % ((10 + int(nk),) + tuple(d))
-            for nk, d in zip(nationkey, digits)
-        ]
+        cc = 10 + nationkey.astype(np.int64)
+        out = np.empty((len(nationkey), 15), dtype=np.uint8)
+        out[:, 0] = ord("0") + cc // 10
+        out[:, 1] = ord("0") + cc % 10
+        out[:, [2, 6, 10]] = ord("-")
+        out[:, [3, 4, 5, 7, 8, 9, 11, 12, 13, 14]] = ord("0") + digits
+        return out.view("S15").ravel()
 
     def _gen_customer(self, rng):
         n = max(int(150_000 * self.sf), 1)
@@ -349,8 +403,7 @@ class TpchData:
         self.tables["customer"] = {
             "c_custkey": np.arange(1, n + 1, dtype=np.int64),
             "c_name": _encode_values(
-                self.dicts, "c_name",
-                [b"Customer#%09d" % k for k in range(1, n + 1)]),
+                self.dicts, "c_name", _zero_padded(b"Customer#", n)),
             "c_address": _encode_pool(
                 self.dicts, "c_address", addr_pool,
                 rng.integers(0, len(addr_pool), n)),
@@ -375,8 +428,7 @@ class TpchData:
         self.tables["supplier"] = {
             "s_suppkey": np.arange(1, n + 1, dtype=np.int64),
             "s_name": _encode_values(
-                self.dicts, "s_name",
-                [b"Supplier#%09d" % k for k in range(1, n + 1)]),
+                self.dicts, "s_name", _zero_padded(b"Supplier#", n)),
             "s_address": _encode_pool(
                 self.dicts, "s_address", addr_pool,
                 rng.integers(0, len(addr_pool), n)),
@@ -393,31 +445,28 @@ class TpchData:
         n = max(int(200_000 * self.sf), 1)
         # p_name: 3 colors joined (dbgen: 5 of 92); pool bounded by combos
         picks = rng.integers(0, len(COLORS), (n, 3))
-        names = [b" ".join((COLORS[a], COLORS[b], COLORS[c]))
-                 for a, b, c in picks]
         mfgr = rng.integers(1, 6, n)
         brand = mfgr * 10 + rng.integers(1, 6, n)
         t1 = rng.integers(0, len(TYPE_SYL1), n)
         t2 = rng.integers(0, len(TYPE_SYL2), n)
         t3 = rng.integers(0, len(TYPE_SYL3), n)
-        types = [b" ".join((TYPE_SYL1[a], TYPE_SYL2[b], TYPE_SYL3[c]))
-                 for a, b, c in zip(t1, t2, t3)]
         c1 = rng.integers(0, len(CONTAINER_SYL1), n)
         c2 = rng.integers(0, len(CONTAINER_SYL2), n)
-        containers = [b" ".join((CONTAINER_SYL1[a], CONTAINER_SYL2[b]))
-                      for a, b in zip(c1, c2)]
         self.tables["part"] = {
             "p_partkey": np.arange(1, n + 1, dtype=np.int64),
-            "p_name": _encode_values(self.dicts, "p_name", names),
-            "p_mfgr": _encode_values(
-                self.dicts, "p_mfgr",
-                [b"Manufacturer#%d" % m for m in mfgr]),
-            "p_brand": _encode_values(
-                self.dicts, "p_brand", [b"Brand#%d" % b for b in brand]),
-            "p_type": _encode_values(self.dicts, "p_type", types),
+            "p_name": _encode_joined(self.dicts, "p_name",
+                                     (COLORS, COLORS, COLORS), picks.T),
+            "p_mfgr": _encode_numbered(
+                self.dicts, "p_mfgr", b"Manufacturer#%d", mfgr),
+            "p_brand": _encode_numbered(
+                self.dicts, "p_brand", b"Brand#%d", brand),
+            "p_type": _encode_joined(
+                self.dicts, "p_type", (TYPE_SYL1, TYPE_SYL2, TYPE_SYL3),
+                (t1, t2, t3)),
             "p_size": rng.integers(1, 51, n, dtype=np.int32),
-            "p_container": _encode_values(
-                self.dicts, "p_container", containers),
+            "p_container": _encode_joined(
+                self.dicts, "p_container", (CONTAINER_SYL1, CONTAINER_SYL2),
+                (c1, c2)),
             "p_retailprice": (90_000 + (np.arange(1, n + 1) % 20_001)
                               ).astype(np.int64),
         }
